@@ -1,0 +1,163 @@
+"""Euclidean projection onto Y (paper eq. 32, Alg. 1 fast projection).
+
+Counterpart of ``repro.core.projection``. The projection decomposes per
+(instance r, resource k) cell: project z_{(:,r)}^k onto
+
+    { yhat : 0 <= yhat_l <= a_l^k  (l in L_r),  sum_l yhat_l <= c_r^k }.
+
+Water-filling form: yhat_l = clip(z_l - tau, 0, a_l) with tau = 0 when
+sum_l clip(z_l, 0, a_l) <= c, otherwise the tau > 0 with
+g(tau) = sum_l clip(z_l - tau, 0, a_l) = c.
+
+These are the plain PyTorch versions. The CUDA sortscan kernel
+(``kernels.sortscan.proj_sortscan``) computes the same function on the
+card; ``project_exact_np`` is the float64 numpy oracle both are held to.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import ClusterSpec
+
+_NEG = -1e30
+
+# Lane count at which project_rows_sorted switches from the all-pairs
+# O(L^2) breakpoint evaluation to the one-sort prefix-sum sweep. The value
+# is the reference's XLA:CPU crossover, kept so both packages take the same
+# branch at the same width; the torch crossover is not measured yet.
+SORTSCAN_MIN_L = 192
+
+
+def _clip(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, a) = min(max(x, 0), a), as jnp.clip evaluates it."""
+    return torch.minimum(torch.clamp_min(x, 0.0), a)
+
+
+def _finish_water_level(zf, af, m, cf, lo, box, need):
+    """Shared closed-form tail of both breakpoint sweeps: given the last
+    breakpoint ``lo`` with g(lo) >= c, recompute g(lo) and the segment
+    slope exactly in one O(L) pass, solve for tau, and water-fill."""
+    glo = (_clip(zf - lo, af) * m).sum(-1, keepdim=True)
+    # slope just right of lo: lanes interior on (lo, next breakpoint)
+    n = (m * (zf - af <= lo) * (zf > lo)).sum(-1, keepdim=True)
+    # n = 0 means g is flat at exactly c past lo (ties / c = 0): tau = lo.
+    tau = torch.where(n > 0.5, lo + (glo - cf) / torch.clamp_min(n, 1.0), lo)
+    tau = torch.clamp_min(tau, 0.0)
+    proj = _clip(zf - tau, af) * m
+    return torch.where(need, proj, box)
+
+
+def project_rows_allpairs(z, a, mask, c):
+    """Exact row projection via all-pairs breakpoint evaluation, O(L^2).
+
+    g is convex, non-increasing and piecewise linear with breakpoints
+    {z_l - a_l, z_l}; it is evaluated at all 2L breakpoints at once, the
+    last breakpoint ``lo`` with g(lo) >= c selects the segment, and
+    ``_finish_water_level`` solves it in closed form.
+    z, a, mask: (N, L); c: (N,).
+    """
+    m = mask.to(torch.float32)
+    zf, af = z.to(torch.float32), a.to(torch.float32)
+    cf = c.to(torch.float32)[:, None]
+
+    box = _clip(zf, af) * m
+    need = box.sum(-1, keepdim=True) > cf
+
+    v = torch.cat([zf - af, zf], dim=-1)                     # (N, 2L)
+    gv = (_clip(zf[:, None, :] - v[:, :, None], af[:, None, :])
+          * m[:, None, :]).sum(-1)                           # (N, 2L)
+    lo = torch.where(gv >= cf, v, _NEG).amax(-1, keepdim=True)
+    return _finish_water_level(zf, af, m, cf, lo, box, need).to(z.dtype)
+
+
+def project_rows_sortscan(z, a, mask, c):
+    """Exact row projection via one sort + prefix sums, O(L log L).
+
+    Sort the breakpoints with their slope deltas (+m at z - a, -m at z),
+    prefix-sum the deltas to the active-lane count per segment, walk g down
+    segment by segment, and pick ``lo`` as above. The prefix sums only
+    SELECT the segment; ``_finish_water_level`` recomputes g(lo) directly.
+    The sort is stable, so tied breakpoints keep their input order.
+    """
+    m = mask.to(torch.float32)
+    zf, af = z.to(torch.float32), a.to(torch.float32)
+    cf = c.to(torch.float32)[:, None]
+
+    box = _clip(zf, af) * m
+    need = box.sum(-1, keepdim=True) > cf
+
+    v = torch.cat([zf - af, zf], dim=-1)
+    d = torch.cat([m, -m], dim=-1)
+    vs, order = torch.sort(v, dim=-1, stable=True)
+    ds = torch.gather(d, -1, order)
+    n_seg = torch.cumsum(ds, dim=-1)
+    g0 = (_clip(zf - vs[:, :1], af) * m).sum(-1, keepdim=True)
+    seg = n_seg[:, :-1] * (vs[:, 1:] - vs[:, :-1])
+    gv = g0 - torch.cat([torch.zeros_like(g0), torch.cumsum(seg, dim=-1)], dim=-1)
+    lo = torch.where(gv >= cf, vs, _NEG).amax(-1, keepdim=True)
+    return _finish_water_level(zf, af, m, cf, lo, box, need).to(z.dtype)
+
+
+def project_rows_sorted(z, a, mask, c):
+    """Exact projection of each row of z onto {0 <= y <= a, sum(y*m) <= c}.
+
+    z, a, mask: (N, L); c: (N,). Narrow rows (L < SORTSCAN_MIN_L) take the
+    all-pairs evaluation, wide rows the sort + prefix-sum sweep.
+    """
+    if z.shape[-1] < SORTSCAN_MIN_L:
+        return project_rows_allpairs(z, a, mask, c)
+    return project_rows_sortscan(z, a, mask, c)
+
+
+def _cell_rows(spec_a, spec_mask, R, K, L):
+    a_rows = spec_a.T[None].expand(R, K, L).reshape(R * K, L)
+    m_rows = spec_mask.T[:, None].expand(R, K, L).reshape(R * K, L)
+    return a_rows, m_rows
+
+
+def project_sorted(z, a, c, mask):
+    """Exact projection of z (L, R, K) onto Y: a (L, K), c (R, K),
+    mask (L, R). Cells are packed to (R*K, L) rows, projected, unpacked."""
+    L, R, K = z.shape
+    a_rows, m_rows = _cell_rows(a, mask, R, K, L)
+    rows = z.permute(1, 2, 0).reshape(R * K, L)
+    out = project_rows_sorted(rows, a_rows, m_rows, c.reshape(-1))
+    return out.reshape(R, K, L).permute(2, 0, 1)
+
+
+def project(spec: ClusterSpec, z: torch.Tensor) -> torch.Tensor:
+    """Pi_Y(z) (eq. 32): the exact sorted breakpoint sweep. (The
+    reference's ``method="bisect"`` A/B branch is not ported.)"""
+    return project_sorted(z, spec.a, spec.c, spec.mask)
+
+
+def project_exact_np(z: np.ndarray, a: np.ndarray, c: float) -> np.ndarray:
+    """Exact 1-cell projection via breakpoint sweep in float64 (the test
+    oracle; a copy of ``repro.core.projection.project_exact_np``).
+    z, a: (L,); c scalar."""
+    z = np.asarray(z, np.float64)
+    a = np.asarray(a, np.float64)
+    box = np.clip(z, 0.0, a)
+    if box.sum() <= c + 1e-12:
+        return box
+    bps = np.unique(np.concatenate([z, z - a, [0.0]]))
+    bps = bps[bps >= 0.0]
+    g = lambda tau: np.clip(z - tau, 0.0, a).sum()
+    vals = np.array([g(t) for t in bps])
+    idx = np.searchsorted(-vals, -c)  # vals descending
+    if idx == 0:
+        lo_t, hi_t = 0.0, bps[0]
+        lo_v, hi_v = g(0.0), vals[0]
+    elif idx >= len(bps):
+        lo_t = bps[-1]
+        lo_v = vals[-1]
+        hi_t, hi_v = lo_t + a.max() + 1.0, g(lo_t + a.max() + 1.0)
+    else:
+        lo_t, hi_t = bps[idx - 1], bps[idx]
+        lo_v, hi_v = vals[idx - 1], vals[idx]
+    if abs(hi_v - lo_v) < 1e-15:
+        tau = lo_t
+    else:  # g is linear on the segment
+        tau = lo_t + (lo_v - c) * (hi_t - lo_t) / (lo_v - hi_v)
+    return np.clip(z - tau, 0.0, a)

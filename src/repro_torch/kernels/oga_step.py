@@ -1,0 +1,69 @@
+"""The fused OGA slot update: gradient (eq. 30) + ascent + exact projection
+in one pass over the packed rows.
+
+Counterpart of ``repro.kernels.oga_step``. Row layout: row n = cell (r, k)
+with L lanes (ports). The per-row scalars are the columns of ``scal``;
+``SCAL_COLUMNS`` is the single definition of that layout (``kernels.ops``
+builds it, ``kernels.ref`` unpacks it, ``csrc/oga_step.cu`` reads it).
+
+``oga_step_fused`` is the wrapper of the CUDA kernel ``oga_step_kernel``
+(``csrc/oga_step.cu``): on CUDA tensors it launches the kernel, on CPU
+tensors it computes the plain version ``ref.oga_step_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _launch, ref
+
+SCAL_COLUMNS = ("alpha", "beta", "c", "kind", "eta")
+NUM_SCAL = len(SCAL_COLUMNS)
+
+
+def pack_scal_static(alpha, beta, c, kind) -> torch.Tensor:
+    """Stack the static per-row scalars (N,) each into the leading
+    (N, NUM_SCAL - 1) columns: everything in ``SCAL_COLUMNS`` except eta,
+    which decays per step and is appended by ``with_eta``."""
+    return torch.stack([alpha, beta, c, kind], dim=1)
+
+
+def with_eta(scal_static: torch.Tensor, eta) -> torch.Tensor:
+    """Append the eta column: ``eta`` is a scalar (one config) or per-row
+    (N,) (grid-flattened batches)."""
+    n = scal_static.shape[0]
+    eta_col = torch.as_tensor(eta, dtype=scal_static.dtype,
+                              device=scal_static.device).expand(n)
+    return torch.cat([scal_static, eta_col[:, None]], dim=1)
+
+
+def pack_scal(alpha, beta, c, kind, eta) -> torch.Tensor:
+    """The full (N, NUM_SCAL) kernel operand in ``SCAL_COLUMNS`` order."""
+    return with_eta(pack_scal_static(alpha, beta, c, kind), eta)
+
+
+def oga_step_fused(y, a, mask, x, kstar, scal) -> torch.Tensor:
+    """y(t+1) (N, L) from y, a, mask, x, kstar (N, L) and scal (N, NUM_SCAL).
+
+    CUDA tensors: one launch of the CUDA kernel, one block per row, counted
+    in ``oga_step_fused.launches``. CPU tensors: ``ref.oga_step_ref``.
+    Raises for any other device, dtype, shape or layout the kernel does
+    not take; there is no fallback from CUDA to the plain version.
+    """
+    if y.device.type == "cpu":
+        return ref.oga_step_ref(y, a, mask, x, kstar, scal)
+    if y.device.type != "cuda":
+        raise ValueError(f"oga_step_fused runs on cuda or cpu tensors, not {y.device}")
+    N, L = y.shape
+    _launch.check_operands(
+        ("y", "a", "mask", "x", "kstar", "scal"), (y, a, mask, x, kstar, scal),
+        [(N, L)] * 5 + [(N, NUM_SCAL)],
+    )
+    out = torch.empty_like(y)
+    if N == 0:
+        return out
+    _launch.launch("repro_oga_step", (y, a, mask, x, kstar, scal), out, L)
+    oga_step_fused.launches += 1
+    return out
+
+
+oga_step_fused.launches = 0

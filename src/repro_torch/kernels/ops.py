@@ -1,0 +1,146 @@
+"""Dispatch around the kernels: the spec-level OGA backend switch, its
+grid-flattened batch form, and the (L, R, K) <-> (N = R*K, L) row layout.
+
+Counterpart of ``repro.kernels.ops``. Row n of the packed layout is cell
+(r, k) and its lanes are the ports; packing is a permute + reshape, so the
+round trip is exact. ``backend="fused"`` runs the fused OGA step
+(``oga_step_fused``: the CUDA kernel on the card, its plain version on the
+CPU); ``backend="reference"`` runs gradient, ascent and projection as
+separate spec-level torch passes.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import projection as _projection
+from repro_torch.core import reward as _reward
+from repro_torch.kernels import oga_step as _og
+from repro_torch.kernels.oga_step import oga_step_fused  # noqa: F401
+from repro_torch.kernels.sortscan import proj_sortscan  # noqa: F401
+
+OGA_BACKENDS = ("auto", "fused", "reference")
+
+
+def resolve_oga_backend(backend: str = "auto") -> str:
+    """"auto" -> "fused"."""
+    if backend not in OGA_BACKENDS:
+        raise ValueError(f"backend must be one of {OGA_BACKENDS}, got {backend!r}")
+    return "fused" if backend == "auto" else backend
+
+
+def backend_provenance(backend: str, device: torch.device) -> dict:
+    """What runs for ``backend`` on ``device``: recorded beside results so
+    an "auto" run says which path it measured."""
+    resolved = resolve_oga_backend(backend)
+    device = torch.device(device)
+    fused_impl = "cuda-kernel" if device.type == "cuda" else "torch-rows"
+    return {
+        "backend_requested": backend,
+        "backend_resolved": resolved,
+        "platform": device.type,
+        "fused_impl": fused_impl if resolved == "fused" else "spec-level",
+    }
+
+
+# ------------------------------------------------------------- row layout --
+def pack_rows(t: torch.Tensor) -> torch.Tensor:
+    """(.., L, R, K) decisions -> (.., R*K, L) contiguous kernel rows (a
+    copy unless ``t`` is itself a view of such rows, as ``unpack_rows``
+    returns)."""
+    L, R, K = t.shape[-3:]
+    return t.movedim(-3, -1).reshape(*t.shape[:-3], R * K, L).contiguous()
+
+
+def unpack_rows(rows: torch.Tensor, L: int, R: int, K: int) -> torch.Tensor:
+    """(.., R*K, L) kernel rows -> (.., L, R, K) decisions (a view)."""
+    return rows.reshape(*rows.shape[:-2], R, K, L).movedim(-1, -3)
+
+
+def pack_spec_operands(spec):
+    """Static fused-kernel operands of a spec: (a_rows, mask_rows,
+    scal_static), i.e. per-row caps and adjacency (N, L) and the leading
+    (N, NUM_SCAL - 1) scalar columns in ``oga_step.SCAL_COLUMNS`` order.
+    Built once per trajectory; eta is appended per step. A stacked spec
+    (leading G) gives its operands with the grid axis flattened into the
+    rows: (G*R*K, L) and (G*R*K, NUM_SCAL - 1)."""
+    L, R, K = spec.L, spec.R, spec.K
+    lead = tuple(spec.mask.shape[:-2])
+    rows = lambda t: t.reshape(-1, L).contiguous()
+    a_rows = rows(spec.a.transpose(-1, -2)[..., None, :, :].expand(*lead, R, K, L))
+    mask_rows = rows(spec.mask.transpose(-1, -2)[..., :, None, :].expand(*lead, R, K, L))
+    per_cell = lambda t: t.expand(*lead, R, K).reshape(-1)
+    scal_static = _og.pack_scal_static(
+        spec.alpha.reshape(-1),
+        per_cell(spec.beta[..., None, :]),
+        spec.c.reshape(-1),
+        per_cell(spec.kinds[..., None, :]).to(spec.a.dtype),
+    )
+    return a_rows, mask_rows, scal_static
+
+
+# the reference's name for the stacked case, which pack_spec_operands covers
+pack_spec_operands_batch = pack_spec_operands
+
+
+def _kstar_rows(spec, y: torch.Tensor) -> torch.Tensor:
+    """1{k = k*_l} rows: k*_l = argmax_k beta_k sum_r y (eq. 27), first
+    index on ties as in reward_grad, broadcast to (.., R*K, L)."""
+    L, R, K = spec.L, spec.R, spec.K
+    s = (y * spec.mask[..., None]).sum(-2)                              # (.., L, K)
+    kstar = F.one_hot(torch.argmax(spec.beta[..., None, :] * s, dim=-1), K).to(y.dtype)
+    lead = tuple(y.shape[:-3])
+    return kstar.transpose(-1, -2)[..., None, :, :].expand(*lead, R, K, L).reshape(
+        *lead, R * K, L).contiguous()
+
+
+def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None):
+    """One OGA slot update y -> y(t+1) at the (L, R, K) spec level.
+
+    backend:
+      "reference" -- gradient (eq. 30), ascent and the exact spec-level
+                     projection as separate torch passes.
+      "fused"     -- one ``oga_step_fused`` over the (R*K, L) rows: the
+                     CUDA kernel on the card, its plain version on the CPU.
+      "auto"      -- "fused".
+    ``operands`` carries ``pack_spec_operands(spec)`` so a loop over slots
+    does not rebuild the static rows every step.
+    """
+    backend = resolve_oga_backend(backend)
+    if backend == "reference":
+        g = _reward.reward_grad(spec, x, y)
+        return _projection.project(spec, y + eta * g)
+
+    L, R, K = spec.L, spec.R, spec.K
+    a_rows, mask_rows, scal_static = (
+        pack_spec_operands(spec) if operands is None else operands
+    )
+    x_rows = x.to(y.dtype)[None].expand(R * K, L).contiguous()
+    rows = oga_step_fused(
+        pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y),
+        _og.with_eta(scal_static, eta),
+    )
+    return unpack_rows(rows, L, R, K)
+
+
+def oga_update_batch(spec, y, x, eta, *, operands=None):
+    """One fused OGA slot update for a stacked grid of G configs, with the
+    grid axis flattened into the rows: N = G*R*K, one kernel launch.
+
+    spec: stacked, every field leading (G,); y (G, L, R, K); x (G, L);
+    eta (G,). Returns y(t+1) (G, L, R, K).
+    """
+    G, L, R, K = y.shape
+    N = R * K
+    a_rows, mask_rows, scal_static = (
+        pack_spec_operands_batch(spec) if operands is None else operands
+    )
+    y_rows = pack_rows(y).reshape(G * N, L)
+    kstar_rows = _kstar_rows(spec, y).reshape(G * N, L)
+    x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L)
+    eta_rows = eta.to(scal_static.dtype)[:, None].expand(G, N).reshape(G * N)
+    rows = oga_step_fused(
+        y_rows, a_rows, mask_rows, x_rows, kstar_rows,
+        _og.with_eta(scal_static, eta_rows),
+    )
+    return unpack_rows(rows.reshape(G, N, L), L, R, K)

@@ -1,0 +1,40 @@
+"""Exact water-level projection of packed rows, standalone.
+
+Counterpart of ``repro.kernels.sortscan.proj_sortscan``. ``proj_sortscan``
+is the wrapper of the CUDA kernel ``proj_sortscan_kernel``
+(``csrc/oga_step.cu``), which projects through the same ``__device__``
+water level (``csrc/sortscan.cuh``) as the fused OGA step: on CUDA tensors
+it launches the kernel, on CPU tensors it computes the plain version
+``ref.proj_rows_sorted``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _launch, ref
+
+
+def proj_sortscan(z, a, mask, c) -> torch.Tensor:
+    """Exact projection of rows of z (N, L) onto {0 <= y <= a,
+    sum(y * mask) <= c}; a, mask: (N, L), c: (N,).
+
+    CUDA tensors: one launch of the CUDA kernel, counted in
+    ``proj_sortscan.launches``. CPU tensors: ``ref.proj_rows_sorted``.
+    Raises for anything the kernel does not take.
+    """
+    if z.device.type == "cpu":
+        return ref.proj_rows_sorted(z, a, mask, c)
+    if z.device.type != "cuda":
+        raise ValueError(f"proj_sortscan runs on cuda or cpu tensors, not {z.device}")
+    N, L = z.shape
+    _launch.check_operands(("z", "a", "mask", "c"), (z, a, mask, c),
+                           [(N, L), (N, L), (N, L), (N,)])
+    out = torch.empty_like(z)
+    if N == 0:
+        return out
+    _launch.launch("repro_proj_sortscan", (z, a, mask, c), out, L)
+    proj_sortscan.launches += 1
+    return out
+
+
+proj_sortscan.launches = 0

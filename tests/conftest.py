@@ -18,6 +18,11 @@ def pytest_configure(config):
         "sanitized: run under jax.transfer_guard('disallow') and "
         "jax.checking_leaks() — the runtime face of repro.analysis.lint",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the port's kernels); skips with a "
+        "reason on a host without them",
+    )
 
 
 @pytest.fixture(autouse=True)
