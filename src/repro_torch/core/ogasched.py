@@ -79,7 +79,8 @@ def run(spec: ClusterSpec, arrivals, eta0, decay=0.9999,
     return rewards, state.y
 
 
-def run_batch(spec: ClusterSpec, arrivals, eta0, decay, device: DeviceLike = None):
+def run_batch(spec: ClusterSpec, arrivals, eta0, decay, device: DeviceLike = None,
+              tiling=None):
     """Run OGASCHED over a stacked grid of G configurations, grid-flattened:
     every slot makes ONE fused row update over N = G*R*K rows
     (ops.oga_update_batch), i.e. one kernel launch on the card.
@@ -87,6 +88,8 @@ def run_batch(spec: ClusterSpec, arrivals, eta0, decay, device: DeviceLike = Non
     Args:
       spec: stacked ClusterSpec (every field leading (G,)).
       arrivals: (G, T, L); eta0, decay: scalars or (G,).
+      tiling: an ``autotune.KernelConfig`` pinning the kernel's row block
+        (default: the autotune cache); it changes speed, never values.
     Returns:
       rewards (G, T) per-slot rewards; y_final (G, L, R, K).
     """
@@ -103,7 +106,7 @@ def run_batch(spec: ClusterSpec, arrivals, eta0, decay, device: DeviceLike = Non
     for t in range(T):
         x_t = arrivals[:, t]
         rewards[:, t] = reward.total_reward(spec, x_t, y)
-        y = ops.oga_update_batch(spec, y, x_t, eta, operands=operands)
+        y = ops.oga_update_batch(spec, y, x_t, eta, operands=operands, tiling=tiling)
         eta = eta * decay
     return rewards, y
 

@@ -12,6 +12,7 @@ g(tau) = sum_l clip(z_l - tau, 0, a_l) = c.
 These are the plain PyTorch versions. The CUDA sortscan kernel
 (``kernels.sortscan.proj_sortscan``) computes the same function on the
 card; ``project_exact_np`` is the float64 numpy oracle both are held to.
+``project_bisection`` is the reference's bisection A/B baseline.
 """
 from __future__ import annotations
 
@@ -126,10 +127,39 @@ def project_sorted(z, a, c, mask):
     return out.reshape(R, K, L).permute(2, 0, 1)
 
 
-def project(spec: ClusterSpec, z: torch.Tensor) -> torch.Tensor:
-    """Pi_Y(z) (eq. 32): the exact sorted breakpoint sweep. (The
-    reference's ``method="bisect"`` A/B branch is not ported.)"""
-    return project_sorted(z, spec.a, spec.c, spec.mask)
+def project_bisection(z, a, c, mask, iters: int = 64):
+    """Projection of z (L, R, K) onto Y by fixed-iteration bisection on
+    tau over [0, max_l z_l], vectorised over every (r, k) cell; the A/B
+    baseline of the exact sweep. a (L, K), c (R, K), mask (L, R); ``iters``
+    halvings (64 reach float32 precision)."""
+    m = mask[:, :, None]
+    box = _clip(z, a[:, None, :]) * m                 # the tau = 0 candidate
+    need = box.sum(0) > c                             # (R, K) capacity binds
+    hi = torch.clamp_min(torch.where(m > 0, z, _NEG).amax(0), 0.0)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        g = (_clip(z - mid[None], a[:, None, :]) * m).sum(0)
+        too_big = g > c
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    tau = 0.5 * (lo + hi)
+    proj = _clip(z - tau[None], a[:, None, :]) * m
+    return torch.where(need[None], proj, box)
+
+
+PROJECT_METHODS = ("sorted", "bisect")
+
+
+def project(spec: ClusterSpec, z: torch.Tensor, iters: int = 64,
+            method: str = "sorted") -> torch.Tensor:
+    """Pi_Y(z) (eq. 32). ``method="sorted"`` (the default) is the exact
+    breakpoint sweep; ``method="bisect"`` the fixed-iteration bisection
+    (``iters`` applies to it only), kept for A/B comparison."""
+    if method == "sorted":
+        return project_sorted(z, spec.a, spec.c, spec.mask)
+    if method == "bisect":
+        return project_bisection(z, spec.a, spec.c, spec.mask, iters=iters)
+    raise ValueError(f"method must be one of {PROJECT_METHODS}, got {method!r}")
 
 
 def project_exact_np(z: np.ndarray, a: np.ndarray, c: float) -> np.ndarray:

@@ -4,9 +4,10 @@ grid-flattened batch form, and the (L, R, K) <-> (N = R*K, L) row layout.
 Counterpart of ``repro.kernels.ops``. Row n of the packed layout is cell
 (r, k) and its lanes are the ports; packing is a permute + reshape, so the
 round trip is exact. ``backend="fused"`` runs the fused OGA step
-(``oga_step_fused``: the CUDA kernel on the card, its plain version on the
-CPU); ``backend="reference"`` runs gradient, ascent and projection as
-separate spec-level torch passes.
+(``kernels.oga_step.oga_step_fused``: the CUDA kernel on the card, its
+plain version on the CPU), its row block resolved from ``kernels.autotune``
+on CUDA tensors and never on the CPU; ``backend="reference"`` runs
+gradient, ascent and projection as separate spec-level torch passes.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import projection as _projection
 from repro_torch.core import reward as _reward
+from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import oga_step as _og
-from repro_torch.kernels.oga_step import oga_step_fused  # noqa: F401
-from repro_torch.kernels.sortscan import proj_sortscan  # noqa: F401
+from repro_torch.kernels import proj_bisect as _pb
+from repro_torch.kernels import sortscan as _ss
 
 OGA_BACKENDS = ("auto", "fused", "reference")
 
@@ -94,7 +96,32 @@ def _kstar_rows(spec, y: torch.Tensor) -> torch.Tensor:
         *lead, R * K, L).contiguous()
 
 
-def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None):
+def _tiling(kernel: str, t: torch.Tensor, tiling, **pin) -> _at.KernelConfig:
+    """The launch config of ``kernel`` over the rows of ``t``: an explicit
+    ``tiling`` as given; otherwise, on CUDA tensors, the autotune cache's
+    entry for the shape (``DEFAULT_CONFIG`` on a miss) with the fields in
+    ``pin`` overriding it. On any other device ``resolve`` is never called
+    and the wrappers run their plain versions."""
+    if tiling is not None:
+        return tiling
+    if t.device.type != "cuda":
+        return _at.DEFAULT_CONFIG._replace(**pin)
+    return _at.resolve(kernel, *t.shape, device=t.device)._replace(**pin)
+
+
+def _dispatch_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal, tiling=None):
+    """The fused update of packed rows. Its row block is ``tiling``'s or,
+    when None, the autotune cache's for the packed shape. The method is
+    always the exact sortscan, whatever the cache or the pin says: cache
+    state changes speed, never values. The bisect A/B goes through
+    ``oga_step_fused(tiling=...)``."""
+    cfg = _tiling("oga_step", y_rows, tiling)
+    return _og.oga_step_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal,
+                              method="sortscan", row_block=cfg.row_block)
+
+
+def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
+                    tiling=None):
     """One OGA slot update y -> y(t+1) at the (L, R, K) spec level.
 
     backend:
@@ -104,7 +131,9 @@ def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None):
                      CUDA kernel on the card, its plain version on the CPU.
       "auto"      -- "fused".
     ``operands`` carries ``pack_spec_operands(spec)`` so a loop over slots
-    does not rebuild the static rows every step.
+    does not rebuild the static rows every step. ``tiling`` (an
+    ``autotune.KernelConfig``) pins the kernel's row block; by default it
+    comes from the autotune cache.
     """
     backend = resolve_oga_backend(backend)
     if backend == "reference":
@@ -116,19 +145,20 @@ def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None):
         pack_spec_operands(spec) if operands is None else operands
     )
     x_rows = x.to(y.dtype)[None].expand(R * K, L).contiguous()
-    rows = oga_step_fused(
+    rows = _dispatch_fused(
         pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y),
-        _og.with_eta(scal_static, eta),
+        _og.with_eta(scal_static, eta), tiling,
     )
     return unpack_rows(rows, L, R, K)
 
 
-def oga_update_batch(spec, y, x, eta, *, operands=None):
+def oga_update_batch(spec, y, x, eta, *, operands=None, tiling=None):
     """One fused OGA slot update for a stacked grid of G configs, with the
     grid axis flattened into the rows: N = G*R*K, one kernel launch.
 
     spec: stacked, every field leading (G,); y (G, L, R, K); x (G, L);
-    eta (G,). Returns y(t+1) (G, L, R, K).
+    eta (G,). ``tiling`` as in ``oga_update_spec``. Returns y(t+1)
+    (G, L, R, K).
     """
     G, L, R, K = y.shape
     N = R * K
@@ -139,8 +169,34 @@ def oga_update_batch(spec, y, x, eta, *, operands=None):
     kstar_rows = _kstar_rows(spec, y).reshape(G * N, L)
     x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L)
     eta_rows = eta.to(scal_static.dtype)[:, None].expand(G, N).reshape(G * N)
-    rows = oga_step_fused(
+    rows = _dispatch_fused(
         y_rows, a_rows, mask_rows, x_rows, kstar_rows,
-        _og.with_eta(scal_static, eta_rows),
+        _og.with_eta(scal_static, eta_rows), tiling,
     )
     return unpack_rows(rows.reshape(G, N, L), L, R, K)
+
+
+# ------------------------------------------------------- kernel dispatchers --
+def oga_step_fused(y, a, mask, x, kstar, scal, *, tiling=None):
+    """The fused kernel over packed rows. An explicit ``tiling`` is run as
+    pinned, bisect included: the A/B entry. Otherwise the cache contributes
+    the row block only and the method is the exact sortscan."""
+    cfg = _tiling("oga_step", y, tiling, method="sortscan", iters=0)
+    return _og.oga_step_fused(y, a, mask, x, kstar, scal, method=cfg.method,
+                              row_block=cfg.row_block, iters=cfg.iters or None)
+
+
+def proj_bisect(z, a, mask, c, *, tiling=None):
+    """The bisection projection. The cache contributes the row block only;
+    the iteration count stays the kernel's default unless ``tiling`` pins
+    it, so cache state never changes values."""
+    cfg = _tiling("proj", z, tiling, iters=0)
+    return _pb.proj_bisect(z, a, mask, c, row_block=cfg.row_block,
+                           iters=cfg.iters or None)
+
+
+def proj_sortscan(z, a, mask, c, *, tiling=None):
+    """The exact sortscan projection, its row block from ``tiling`` or the
+    autotune cache."""
+    cfg = _tiling("proj", z, tiling)
+    return _ss.proj_sortscan(z, a, mask, c, row_block=cfg.row_block)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import projection as _proj
 from repro_torch.core import utilities as U
+from repro_torch.kernels import autotune
 
 
 def proj_rows_sorted(z, a, mask, c):
@@ -29,6 +30,51 @@ def proj_rows_sortscan(z, a, mask, c):
     return _proj.project_rows_sortscan(z, a, mask, c)
 
 
+def proj_rows_bisect(z, a, mask, c, iters: int = autotune.DEFAULT_BISECT_ITERS):
+    """The seeded bisection of ``kernels.proj_bisect`` in float32: bracket
+    lo = max((sum box - c) / max(sum m, 1), 0), hi = max(max_{m>0} z, lo),
+    ``iters`` halvings on g(mid) > c, then the secant step clipped to the
+    bracket. The plain version of the bisect kernel and of the fused step's
+    bisect branch."""
+    m = mask.to(torch.float32)
+    zf, af = z.to(torch.float32), a.to(torch.float32)
+    cf = c.to(torch.float32)[:, None]
+    g = lambda tau: (_proj._clip(zf - tau, af) * m).sum(-1, keepdim=True)
+
+    box = _proj._clip(zf, af) * m
+    s_box = box.sum(-1, keepdim=True)
+    need = s_box > cf
+    n_act = torch.clamp_min(m.sum(-1, keepdim=True), 1.0)
+    lo = torch.clamp_min((s_box - cf) / n_act, 0.0)
+    hi = torch.maximum(torch.where(m > 0, zf, _proj._NEG).amax(-1, keepdim=True), lo)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_big = g(mid) > cf
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    glo, ghi = g(lo), g(hi)
+    tau = lo + (glo - cf) * (hi - lo) / torch.clamp_min(glo - ghi, 1e-30)
+    tau = torch.where(need, torch.minimum(torch.maximum(tau, lo), hi), 0.0)
+    return torch.where(need, _proj._clip(zf - tau, af) * m, box).to(z.dtype)
+
+
+def proj_rows_ref(z, a, mask, c, iters: int = 64):
+    """Direct bisection over rows from the bracket [0, max z], ``iters``
+    halvings and the midpoint: an independent re-implementation (the
+    reference's ``ref.proj_rows_ref``)."""
+    m = mask
+    box = _proj._clip(z, a) * m
+    need = box.sum(1) > c
+    hi = torch.clamp_min(torch.where(m > 0, z, _proj._NEG).amax(1), 0.0)
+    lo = torch.zeros_like(hi)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        big = (_proj._clip(z - mid[:, None], a) * m).sum(1) > c
+        lo, hi = torch.where(big, mid, lo), torch.where(big, hi, mid)
+    tau = 0.5 * (lo + hi)
+    proj = _proj._clip(z - tau[:, None], a) * m
+    return torch.where(need[:, None], proj, box)
+
+
 def proj_rows_exact_np(z, a, mask, c):
     """Exact float64 numpy oracle (breakpoint sweep) per row."""
     z = np.asarray(z, np.float64)
@@ -43,15 +89,26 @@ def proj_rows_exact_np(z, a, mask, c):
     return out
 
 
-def oga_step_ref(y, a, mask, x, kstar, scal):
-    """Packed-row OGA update: gradient (eq. 30) -> ascent -> exact projection.
+OGA_PROJECTIONS = ("sorted", "bisect")
+
+
+def oga_step_ref(y, a, mask, x, kstar, scal, proj: str = "sorted",
+                 iters: int = autotune.DEFAULT_BISECT_ITERS):
+    """Packed-row OGA update: gradient (eq. 30) -> ascent -> projection.
 
     y, a, mask, x, kstar: (N, L); ``scal`` (N, NUM_SCAL) with the columns of
     ``kernels.oga_step.SCAL_COLUMNS`` (alpha, beta, c, kind, eta). The
     gradient covers all seven utility kinds through ``utilities.util_grad``.
+    ``proj="sorted"`` projects exactly (the kernel's sortscan method),
+    ``proj="bisect"`` by the seeded bisection with ``iters`` halvings (its
+    bisect method).
     """
+    if proj not in OGA_PROJECTIONS:
+        raise ValueError(f"proj must be one of {OGA_PROJECTIONS}, got {proj!r}")
     alpha, beta, c, kind, eta = scal.unbind(1)
     g = U.util_grad(kind[:, None].to(torch.int32), alpha[:, None], y * mask)
     g = g - beta[:, None] * kstar
     z = y + eta[:, None] * x * g * mask
-    return proj_rows_sorted(z, a, mask, c)
+    if proj == "sorted":
+        return proj_rows_sorted(z, a, mask, c)
+    return proj_rows_bisect(z, a, mask, c, iters)

@@ -11,14 +11,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _launch, ref
+from repro_torch.kernels import _launch, autotune, ref
 
 
-def proj_sortscan(z, a, mask, c) -> torch.Tensor:
+def proj_sortscan(z, a, mask, c, *, row_block=None) -> torch.Tensor:
     """Exact projection of rows of z (N, L) onto {0 <= y <= a,
     sum(y * mask) <= c}; a, mask: (N, L), c: (N,).
 
-    CUDA tensors: one launch of the CUDA kernel, counted in
+    CUDA tensors: one launch of the CUDA kernel, ``row_block`` rows per
+    block (``autotune.DEFAULT_ROW_BLOCK`` when None), counted in
     ``proj_sortscan.launches``. CPU tensors: ``ref.proj_rows_sorted``.
     Raises for anything the kernel does not take.
     """
@@ -29,10 +30,11 @@ def proj_sortscan(z, a, mask, c) -> torch.Tensor:
     N, L = z.shape
     _launch.check_operands(("z", "a", "mask", "c"), (z, a, mask, c),
                            [(N, L), (N, L), (N, L), (N,)])
+    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L)
     out = torch.empty_like(z)
     if N == 0:
         return out
-    _launch.launch("repro_proj_sortscan", (z, a, mask, c), out, L)
+    _launch.launch("oga_step.cu", "repro_proj_sortscan", (z, a, mask, c), out, L, rb)
     proj_sortscan.launches += 1
     return out
 

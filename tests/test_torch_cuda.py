@@ -1,11 +1,15 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version and the float64 oracle, the wrappers' checks, and a short run of
-the main path through the kernels. Marked ``cuda``; on a host without a
-card every test skips (the decision is made in a fixture, never at import).
+version and the float64 oracle, the wrappers' checks, the tiling (rows per
+block) and the tuner, and a short run of the main path through the
+kernels. Marked ``cuda``; on a host without a card every test skips (the
+decision is made in a fixture, never at import).
 
 Tolerances: 1e-5 for the fused step against its plain version (the
 kernel's projection solves in float64, the plain one in float32); 1e-6
-for the projection against the float64 oracle.
+for the sortscan projection against the float64 oracle; 5e-5 for every
+bisection result (the reference's bar for its bisect kernel: the bracket
+width / 2^iters); none across row blocks, where the outputs are equal bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -13,7 +17,12 @@ import torch
 
 from repro_torch.core import ogasched
 from repro_torch.kernels import autotune, ops, ref
-from repro_torch.sched import trace
+from repro_torch.kernels import oga_step as toga
+from repro_torch.kernels import proj_bisect as tpb
+from repro_torch.kernels import sortscan as tss
+from repro_torch.sched import sweep, trace
+
+BISECT_ATOL = 5e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -45,14 +54,14 @@ def _step_args(rng, N, L, dev):
 @pytest.mark.parametrize("N,L", [(768, 10), (6144, 100), (37, 1), (64, 512)])
 def test_oga_step_kernel_matches_plain(dev, N, L):
     args = _step_args(_rng(0, N, L), N, L, dev)
-    before = ops.oga_step_fused.launches
+    before = toga.oga_step_fused.launches
     got = ops.oga_step_fused(*args)
     torch.cuda.synchronize()
-    assert ops.oga_step_fused.launches == before + 1
+    assert toga.oga_step_fused.launches == before + 1
     torch.testing.assert_close(got, ref.oga_step_ref(*args), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("N,L", [(256, 10), (256, 100), (64, 130)])
+@pytest.mark.parametrize("N,L", [(256, 10), (256, 100), (64, 130), (768, 10), (6144, 100)])
 def test_proj_sortscan_kernel_matches_oracle(dev, N, L):
     rng = _rng(1, N, L)
     z = rng.normal(0.0, 5.0, (N, L)).astype(np.float32)
@@ -85,10 +94,146 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 def test_ogasched_run_on_the_card_matches_cpu(dev):
     cfg = trace.TraceConfig(T=64, L=6, R=16, K=4, seed=1)
     spec, arr = trace.make(cfg, device="cpu")
-    before = ops.oga_step_fused.launches
+    before = toga.oga_step_fused.launches
     got, y_got = ogasched.run(spec, arr, eta0=25.0, device=dev)
-    assert ops.oga_step_fused.launches == before + cfg.T
+    assert toga.oga_step_fused.launches == before + cfg.T
     want, y_want = ogasched.run(spec, arr, eta0=25.0, device="cpu")
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4 * scale, rtol=0)
     np.testing.assert_allclose(y_got.cpu().numpy(), y_want.numpy(), atol=1e-4)
+
+
+@pytest.fixture
+def cache(tmp_path, monkeypatch):
+    """A fresh, empty autotune table for the test."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.reset_cache()
+    autotune.reset_stats()
+    yield tmp_path
+    autotune.reset_cache()
+    autotune.reset_stats()
+
+
+def _proj_args(rng, N, L):
+    """The reference's projection-test distribution, with rows the
+    capacity does not bind (c large), duplicated breakpoints, z = a lanes
+    and fully masked rows."""
+    z = rng.normal(0.0, 5.0, (N, L)).astype(np.float32)
+    a = rng.uniform(0.1, 4.0, (N, L)).astype(np.float32)
+    m = (rng.random((N, L)) < 0.8).astype(np.float32)
+    c = rng.uniform(0.3, 6.0, N).astype(np.float32)
+    c[::3] = 1e4
+    z[:N // 4, 1::2] = z[:N // 4, 0:L - 1:2]
+    a[:N // 4, 1::2] = a[:N // 4, 0:L - 1:2]
+    z[:N // 4, 0] = a[:N // 4, 0]
+    m[N // 4: N // 4 + 3] = 0.0
+    return z, a, m, c
+
+
+def _feasible(y, a, m, c):
+    assert (y >= 0).all() and (y <= a).all()
+    assert (y[m == 0] == 0).all()
+    assert ((y * m).sum(1) <= c + 1e-4).all()
+
+
+@pytest.mark.parametrize("N,L", [(768, 10), (6144, 100), (37, 1), (64, 512)])
+def test_proj_bisect_kernel_matches_plain_and_oracle(dev, N, L):
+    z, a, m, c = _proj_args(_rng(3, N, L), N, L)
+    args = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    before = tpb.proj_bisect.launches
+    got = ops.proj_bisect(*args)
+    torch.cuda.synchronize()
+    assert tpb.proj_bisect.launches == before + 1
+    torch.testing.assert_close(got, ref.proj_rows_bisect(*args), atol=BISECT_ATOL, rtol=0)
+    y = got.cpu().numpy()
+    np.testing.assert_allclose(y, ref.proj_rows_exact_np(z, a, m, c), atol=BISECT_ATOL)
+    _feasible(y, a, m, c)
+
+
+@pytest.mark.parametrize("N,L", [(768, 10), (6144, 100), (37, 1), (64, 512)])
+def test_oga_step_bisect_branch_matches_plain_and_sortscan(dev, N, L):
+    args = _step_args(_rng(4, N, L), N, L, dev)
+    for iters in autotune.BISECT_ITERS:
+        pin = autotune.KernelConfig(1, "bisect", iters)
+        got = ops.oga_step_fused(*args, tiling=pin)
+        torch.testing.assert_close(got, ref.oga_step_ref(*args, proj="bisect", iters=iters),
+                                   atol=BISECT_ATOL, rtol=0)
+        torch.testing.assert_close(got, ops.oga_step_fused(*args), atol=BISECT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("N,L", [(777, 10), (203, 100), (37, 1), (91, 30), (9, 512)])
+def test_every_legal_row_block_gives_the_same_bits(dev, N, L):
+    """Rows per block change the grid only: a row's sums, scans and sort
+    run in the same order whatever the block holds, and a row that needs
+    no projection, or the ragged last block (N % row_block != 0), leaves
+    without stranding its neighbours at a barrier."""
+    z, a, m, c = _proj_args(_rng(5, N, L), N, L)
+    pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    sargs = _step_args(_rng(6, N, L), N, L, dev)
+    sargs[-1][::3, 2] = 1e4  # the capacity binds on two rows in three
+    base = {
+        "proj_sortscan": tss.proj_sortscan(*pargs, row_block=1),
+        "proj_bisect": tpb.proj_bisect(*pargs, row_block=1),
+        "oga_sortscan": toga.oga_step_fused(*sargs, row_block=1),
+        "oga_bisect": toga.oga_step_fused(*sargs, method="bisect", row_block=1),
+    }
+    rbs = [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L)]
+    assert rbs[0] == 1 and (L > 16 or len(rbs) == 6)
+    for rb in rbs[1:]:
+        got = {
+            "proj_sortscan": tss.proj_sortscan(*pargs, row_block=rb),
+            "proj_bisect": tpb.proj_bisect(*pargs, row_block=rb),
+            "oga_sortscan": toga.oga_step_fused(*sargs, row_block=rb),
+            "oga_bisect": toga.oga_step_fused(*sargs, method="bisect", row_block=rb),
+        }
+        torch.cuda.synchronize()
+        for name, want in base.items():
+            assert torch.equal(got[name], want), f"{name} row_block={rb}"
+
+
+def test_wrappers_reject_tilings_the_kernels_do_not_take(dev):
+    args = _step_args(_rng(7), 8, 10, dev)
+    for rb in (3, 64):  # not a power of two; 64 rows x 32 threads > 1024
+        with pytest.raises(ValueError):
+            toga.oga_step_fused(*args, row_block=rb)
+    with pytest.raises(ValueError):
+        toga.oga_step_fused(*args, method="quickselect")
+    with pytest.raises(ValueError):
+        toga.oga_step_fused(*args, method="bisect", iters=autotune.MAX_BISECT_ITERS + 1)
+    z = torch.zeros((4, 100), device=dev)
+    with pytest.raises(ValueError):  # 8 rows x 256 threads > 1024
+        tpb.proj_bisect(z, z, z, torch.zeros(4, device=dev), row_block=8)
+
+
+def test_warmed_dispatch_makes_no_measurement(dev, cache):
+    """Once a shape is tuned, dispatch runs off the table: no measurement,
+    no miss; and a bisect entry contributes its row block only."""
+    cfg = trace.TraceConfig(T=16, L=6, R=16, K=4, seed=2)
+    points = sweep.make_grid(cfg, seeds=(2, 3))
+    batch = sweep.build_batch(points, device=dev)
+    N = batch.size * cfg.R * cfg.K
+    autotune._store("oga_step", N, cfg.L, autotune.KernelConfig(4, "bisect", 12), 1.0, {})
+    autotune._store("oga_step", cfg.R * cfg.K, cfg.L, autotune.KernelConfig(8, "sortscan", 0),
+                    1.0, {})
+    autotune.reset_stats()
+    got = sweep.run_grid(batch, ("ogasched",))["ogasched"]
+    single, _ = ogasched.run(batch.spec[0], batch.arrivals[0], eta0=25.0, device=dev)
+    stats = autotune.cache_stats()
+    assert stats["measurements"] == 0 and stats["misses"] == 0
+    assert stats["hits"] == 2 * cfg.T
+    pinned, _ = ogasched.run_batch(batch.spec, batch.arrivals, batch.eta0, batch.decay,
+                                   tiling=autotune.DEFAULT_CONFIG)
+    assert torch.equal(got, pinned)
+    torch.testing.assert_close(single, got[0], atol=1e-4 * float(single.abs().max()), rtol=0)
+
+
+def test_tune_times_every_candidate_on_the_card(dev, cache):
+    cands = autotune.candidates("proj", 256, 10, methods=autotune.PROJ_METHODS)
+    win, measured = autotune.tune("proj", 256, 10, methods=autotune.PROJ_METHODS,
+                                  repeats=3, store=False)
+    assert win in cands and len(measured) == len(cands)
+    assert all(0 < us < 1e5 for us in measured.values())
+    assert autotune.measurement_count() == len(cands)
+    assert autotune.lookup("proj", 256, 10) is None
+    win, _ = autotune.tune("oga_step", 768, 10, repeats=3)
+    assert autotune.resolve("oga_step", 768, 10) == win

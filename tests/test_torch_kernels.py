@@ -25,6 +25,8 @@ from repro_torch import convert
 from repro_torch.core import ogasched
 from repro_torch.kernels import autotune, build, ops
 from repro_torch.kernels import oga_step as toga
+from repro_torch.kernels import proj_bisect as tpb
+from repro_torch.kernels import sortscan as tss
 from repro_torch.kernels import ref as tref
 
 
@@ -143,12 +145,16 @@ def test_launch_constants():
 def test_cuda_requests_raise_without_fallback(monkeypatch):
     """Without a card, a request for CUDA raises; no wrapper or entry point
     drops to the plain version, and no launch is counted."""
-    before = (ops.oga_step_fused.launches, ops.proj_sortscan.launches)
+    counts = lambda: (toga.oga_step_fused.launches, tss.proj_sortscan.launches,
+                      tpb.proj_bisect.launches)
+    before = counts()
     meta = [torch.empty((4, 3), device="meta") for _ in range(5)]
     with pytest.raises(ValueError):
         ops.oga_step_fused(*meta, torch.empty((4, 5), device="meta"))
     with pytest.raises(ValueError):
         ops.proj_sortscan(*meta[:3], torch.empty(4, device="meta"))
+    with pytest.raises(ValueError):
+        ops.proj_bisect(*meta[:3], torch.empty(4, device="meta"))
     _, arrs = _spec_pair(_rng(4), 3, 4, 2)
     tspec = convert.spec_from_numpy(**arrs, device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
@@ -158,4 +164,4 @@ def test_cuda_requests_raise_without_fallback(monkeypatch):
     monkeypatch.setattr(build, "build_dir", lambda: build.Path("/nonexistent-build-dir"))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
-    assert (ops.oga_step_fused.launches, ops.proj_sortscan.launches) == before
+    assert counts() == before
