@@ -24,14 +24,27 @@ Phases, each printing one JSON line:
   fig5     run_all at the paper's Fig. 5 large-scale config (T = 300).
   grid     sweep.make_grid -> build_batch -> run_grid -> summarize over 64
            Fig. 2 configs, one fused launch per step.
+  flash    the flash-attention kernel against its plain version: the
+           reference tests' float32 shapes (plus hd 80, windows, softcaps
+           and a ragged S), and gemma2-27b's prefill shape in bf16, global
+           and with window 4096, with CUDA-event times, the bound and the
+           time of torch's scaled_dot_product_attention beside it.
+  lm_prefill  the LM serving path at gemma2-27b's full width: first the
+           float32 check at 2 layers (prefill(S - 1) + serve_step against
+           prefill(S)), then all 46 layers in bf16 from seeded random
+           weights: prefill of one 8192-token prompt (timed, peak memory)
+           and the same decode-after-prefill check.
+  lm_serve the continuous-batching Engine on those weights: 8 greedy
+           requests over 4 slots, each first token against prefill's.
 
 fig2 to grid run on the warmed cache and must make no measurement and
 miss it never. The kernel launch counters are set to 0 before the autotune
-path and read after it, and again for the main path (fig2 to grid). The
-line before the last lists every kernel with its launches on each path
-and their sum, its error and its times; the last line is {"ok": true, "device": {...}}.
-A failed check raises, and the exit code is then non-zero. Needs no
-network; imports nothing of JAX or of the reference package ``repro``.
+path and read after it, again for the main path (fig2 to grid), and again
+for the serve path (lm_prefill and lm_serve). The line before the last
+lists every kernel with its launches on each path and their sum, its error
+and its times; the last line is {"ok": true, "device": {...}}. A failed
+check raises, and the exit code is then non-zero. Needs no network;
+imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
@@ -94,6 +107,60 @@ BISECT_ATOL = 5e-5
 CAPACITY_SLACK = 1e-4       # sum(y) <= c + this for a bisection's output
 TIMING_REPS = 25
 
+# bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet): the
+# flash-attention bound counts its work at the rate the function needs
+BF16_OPS_PER_S = 989e12
+# Flash kernel against its plain version. float32: the reference's bar
+# (tests/test_kernels.py), 2e-5, at the small shapes and at the path shape
+# (scores summed in another order). bf16: kernel and plain version both
+# compute in float32 and round the output once, so they differ by at most
+# a rounding flip, one bf16 ulp <= 2^-7 |o|. The bar is two ulps, 2^-6 |o|,
+# plus 1e-4 for outputs near 0 (float32 sums in another order), and never
+# above the reference's 0.05. At the path shape |o| is ~sqrt(e / q), ~0.02
+# for most rows, where 0.05 would pass a tile dropped at the window's edge
+# (~1e-2); 2^-6 |o| + 1e-4 there is ~4e-4. FLASH_BF16_ATOL stays the bar of
+# the SDPA comparison, which rounds its probabilities to bf16.
+FLASH_F32_ATOL = 2e-5
+FLASH_BF16_ATOL = 0.05
+FLASH_BF16_RTOL = 2.0 ** -6
+FLASH_BF16_NEAR0 = 1e-4
+FLASH_TIMING_REPS = 10
+# gemma2-27b's prefill shape: one 8192-token prompt (the model's context,
+# where the 4096 window bites on the local layers), 32 query heads over
+# 16 KV heads of 128.
+LM_ARCH = "gemma2-27b"
+LM_SEQ = 8192
+LM_SEED = 20261017
+# Decode after prefill(S - 1) against prefill(S)'s last logits. float32,
+# 2 layers: the reference's own bar (tests/test_arch_smoke.py). bf16, 46
+# layers: every matmul rounds its output to bf16 (8 bits of mantissa) and
+# the two paths round different partial sums (M = 8191 against M = 1
+# rows), so the residual stream drifts by bf16 ulps over 46 layers; logits
+# are ~N(0, 2), capped at 30. That drift measured 0.27 on this seed's
+# prompt with the kernel in prefill, 0.23 with the plain attention in its
+# place, and 0.31 between the two prefills: it is bf16's, not the kernel's
+# (the float32 check sits at ~2e-5). The engine's first-step logits sit
+# 0.34-0.45 from prefill's (lm_serve). The bar, 0.7, is 1.5 times the
+# largest of those readings (0.454); the argmax must agree. The same bar
+# holds the kernel's prefill against the plain attention's, and lm_serve.
+LM_F32_DECODE_ATOL = 5e-3
+LM_BF16_DECODE_ATOL = 0.7
+LM_PREFILL_REPS = 2
+# lm_serve: 4 slots, a 512-slot cache, 8 greedy requests of 32-64 prompt
+# tokens and 32 new ones. The logits of the step that gives a request its
+# first token are held to the bf16 decode bar above against prefill's, and
+# the token to the argmax of those logits. The token must equal prefill's
+# argmax unless prefill's top-2 gap is at most SERVE_TIE_GAP, twice the
+# logit bar: past that gap no two logit vectors within the bar can disagree,
+# so this rule follows from the logit bar and adds no check of its own.
+# Random weights give gaps of 0.03-0.45, so at this seed it exempts every
+# request; the agreement is printed (first_tokens_equal_prefill_argmax).
+SERVE_SLOTS = 4
+SERVE_CACHE_LEN = 512
+SERVE_REQUESTS = 8
+SERVE_NEW_TOKENS = 32
+SERVE_TIE_GAP = 2 * LM_BF16_DECODE_ATOL
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -102,6 +169,345 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the tuner's CUDA-event method
+    (``autotune.device_time_ms``), median of ``reps`` calls."""
+    from repro_torch.kernels import autotune
+    return autotune.device_time_ms(fn, reps)
+
+
+def flash_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal row set of S rows attends to: with a
+    window, row q sees min(q + 1, window) keys."""
+    if window <= 0:
+        return S * (S + 1) // 2
+    return sum(min(q + 1, window) for q in range(S))
+
+
+def flash_bound(B, S, H, G, hd, window, elem_bytes):
+    """The least time the H100 could take for the attention itself: 4 hd
+    FLOPs per head per unmasked pair at the bf16 tensor-core rate, or one
+    read of q, k, v and one write of o at the HBM rate; the larger."""
+    t_ops = 4 * hd * H * B * flash_pairs(S, window) / BF16_OPS_PER_S * 1e3
+    t_bytes = elem_bytes * B * S * hd * (2 * H + 2 * G) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_phase(torch, dev) -> dict:
+    """The flash kernel against its plain version on the card; times at
+    gemma2-27b's prefill shape. Launches made here are not a path's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+
+    def qkv(B, S, H, G, hd, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
+
+    small = []
+    cases = [((1, 128, 4, 2, 64), None, None), ((2, 256, 4, 1, 64), None, None),
+             ((1, 256, 8, 8, 128), None, None), ((2, 512, 2, 1, 64), None, None),
+             ((1, 256, 4, 2, 80), None, None), ((1, 256, 4, 2, 64), 128, None),
+             ((1, 256, 4, 2, 64), None, 30.0), ((1, 256, 4, 2, 64), 128, 50.0),
+             ((1, 191, 4, 2, 128), 64, 50.0)]
+    for shape, window, cap in cases:
+        q, k, v = qkv(*shape, torch.float32)
+        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= FLASH_F32_ATOL, f"flash {shape} window={window} softcap={cap}: {err}")
+        small.append({"B_S_H_G_hd": shape, "window": window, "softcap": cap, "max_abs_err": err})
+
+    B, S, H, G, hd = 1, LM_SEQ, 32, 16, 128
+    q, k, v = qkv(B, S, H, G, hd, torch.bfloat16)
+    path = {}
+    for label, window in (("global", 0), ("window4096", 4096)):
+        run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
+        plain = lambda: ref.flash_attention_ref(q, k, v, window=window, softcap=50.0)
+        want = plain().float()
+        diff = (run().float() - want).abs()
+        bar = (FLASH_BF16_NEAR0 + FLASH_BF16_RTOL * want.abs()).clamp(max=FLASH_BF16_ATOL)
+        err, worst = float(diff.max()), float((diff / bar).max())
+        check(worst <= 1.0, f"flash path shape {label}: error {worst} times its bar "
+                            f"(max abs err {err})")
+        t_b, by = flash_bound(B, S, H, G, hd, window, 2)
+        path[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "dtype": "bfloat16", "window": window,
+                       "softcap": 50.0, "max_abs_err": err, "max_err_over_bar": worst,
+                       "median_abs_o": float(want.abs().median()),
+                       "ms": device_ms(run, FLASH_TIMING_REPS),
+                       "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
+                       "bound_ms": t_b, "bound_by": by,
+                       "pairs": flash_pairs(S, window)}
+    # the library yardstick: one torch call of the same function without the
+    # softcap (no single call softcaps), beside the kernel on those inputs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    nocap = lambda: ops.flash_attention(q, k, v)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - nocap().float()).abs().max())
+    check(sdpa_err <= FLASH_BF16_ATOL, f"flash without softcap vs SDPA: {sdpa_err}")
+    library = {"call": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True)", "softcap": None, "window": 0,
+               "library_ms": device_ms(sdpa, FLASH_TIMING_REPS),
+               "kernel_ms": device_ms(nocap, FLASH_TIMING_REPS),
+               "kernel_vs_library_max_abs": sdpa_err,
+               "softcapped": "no single PyTorch call computes the softcapped function"}
+    del q, k, v, qt, kt, vt
+    # float32 at the path shape: a tile schedule that goes wrong only at
+    # S = 8192 shows here at the reference's float32 bar
+    path_f32 = {}
+    q, k, v = qkv(B, S, H, G, hd, torch.float32)
+    for label, window in (("global", 0), ("window4096", 4096)):
+        got = ops.flash_attention(q, k, v, window=window, softcap=50.0)
+        err = float((got - ref.flash_attention_ref(q, k, v, window=window, softcap=50.0))
+                    .abs().max())
+        check(err <= FLASH_F32_ATOL, f"flash path shape float32 {label}: max abs err {err}")
+        path_f32[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "window": window, "softcap": 50.0,
+                           "max_abs_err": err}
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return {"phase": "flash", "phase_s": time.perf_counter() - t_phase,
+            "small_f32": small, "path_f32": path_f32, "path_bf16": path, "library": library,
+            "f32_atol": FLASH_F32_ATOL,
+            "bf16_bar": f"min({FLASH_BF16_ATOL}, {FLASH_BF16_NEAR0} + {FLASH_BF16_RTOL} |o|)",
+            "sdpa_atol": FLASH_BF16_ATOL,
+            "timing": f"device time, median of {FLASH_TIMING_REPS} calls between CUDA events"}
+
+
+def device_profile(torch, fn, n_top: int = 8) -> dict:
+    """Run ``fn`` once under torch.profiler: its wall time, the device time
+    of its CUDA kernels (which run on one stream, so never overlap), the
+    share of the wall time the card sat idle, and the kernels that took the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy = sum(t for t, _, _ in kernels)
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us if busy else None,
+            "host_ops": sum(ev.count for ev in prof.key_averages()
+                            if ev.device_type == DeviceType.CPU and ev.key.startswith("aten::")),
+            "top_kernels_ms": [(k[:60], n, t / 1e3) for t, n, k in kernels[:n_top]]}
+
+
+def decode_after_prefill(torch, M, tf, params, cfg, prompt):
+    """prefill(prompt[:, :S - 1]), its cache padded by one empty slot, one
+    serve_step at position S - 1, against prefill(prompt)'s last logits
+    (tests/test_arch_smoke.py). Returns (prefill's logits, the step's)."""
+    S = prompt.shape[1]
+    full, cache = M.prefill(params, cfg, {"tokens": prompt})
+    del cache
+    _, cache = M.prefill(params, cfg, {"tokens": prompt[:, :S - 1]})
+    pad = lambda c, fill: torch.cat([c, torch.full_like(c[:, :, :1], fill)], dim=2)
+    cache = {"k": pad(cache["k"], 0), "v": pad(cache["v"], 0),
+             "kpos": pad(cache["kpos"], tf.EMPTY_KPOS)}
+    step, cache = M.serve_step(params, cfg, cache, prompt[:, S - 1:], S - 1)
+    del cache
+    return full, step
+
+
+def compare_logits(torch, full, step) -> dict:
+    top2 = torch.topk(full[0], 2).values
+    return {"max_abs_dlogit": float((full - step).abs().max()),
+            "argmax_prefill": int(full.argmax()), "argmax_decode": int(step.argmax()),
+            "top2_gap_prefill": float(top2[0] - top2[1]),
+            "finite": bool(torch.isfinite(full).all() and torch.isfinite(step).all())}
+
+
+def lm_prefill_phase(torch, dev):
+    """gemma2-27b at full width: the float32 check at 2 layers, then all 46
+    layers in bf16. Returns (the phase's line, the bf16 config, params)."""
+    import dataclasses
+
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    prompt = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen, device=dev)
+
+    # float32, every width of gemma2-27b, depth cut to 2 (one local, one global)
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = M.init_params(cfg32, LM_SEED, dev)
+    f32 = compare_logits(torch, *decode_after_prefill(torch, M, tf, params, cfg32, prompt))
+    del params
+    torch.cuda.empty_cache()
+    f32["layers"] = cfg32.n_layers
+    check(f32["finite"], "lm_prefill float32: logits not finite")
+    check(f32["max_abs_dlogit"] <= LM_F32_DECODE_ATOL,
+          f"lm_prefill float32: decode vs prefill max |dlogit| {f32['max_abs_dlogit']}")
+
+    # bf16, all 46 layers
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, LM_SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    times = []
+    for _ in range(1 + LM_PREFILL_REPS):  # the first is the warm-up
+        torch.cuda.synchronize()
+        n0 = fa.flash_attention.launches
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(params, cfg, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(fa.flash_attention.launches - n0 == cfg.n_layers,
+              f"lm_prefill: {fa.flash_attention.launches - n0} flash launches in one prefill")
+        check(tuple(cache["k"].shape) == (cfg.n_layers, 1, LM_SEQ, cfg.n_kv, cfg.hd),
+              f"lm_prefill: cache of shape {tuple(cache['k'].shape)}")
+        del cache
+    check(tuple(logits.shape) == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "lm_prefill: last-token logits not finite or of the wrong shape")
+    check(float(logits.abs().max()) <= cfg.final_softcap, "lm_prefill: logits above the softcap")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = device_profile(torch, lambda: M.prefill(params, cfg, {"tokens": prompt}))
+    full, step = decode_after_prefill(torch, M, tf, params, cfg, prompt)
+    bf16 = compare_logits(torch, full, step)
+    bf16["layers"] = cfg.n_layers
+    # the same prefill with the plain attention in the kernel's place
+    real_attention = attn_lib.attention
+    attn_lib.attention = lambda q, k, v, window=None, attn_softcap=None: \
+        ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+    try:
+        plain, cache = M.prefill(params, cfg, {"tokens": prompt})
+        del cache
+    finally:
+        attn_lib.attention = real_attention
+    vs_plain = compare_logits(torch, full, plain)
+    ms = statistics.median(times[1:])
+    line = {"phase": "lm_prefill", "phase_s": time.perf_counter() - t_phase,
+            "arch": LM_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
+            "window": cfg.window, "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+            "params": n_params, "prompt_tokens": LM_SEQ, "init_s": init_s,
+            "ms_per_prefill": ms, "ms_per_prefill_all": times,
+            "prefill_tokens_per_s": LM_SEQ / (ms / 1e3),
+            "peak_memory_gb": peak_gb, "prefill_profile": profile,
+            "bf16_decode_vs_prefill": bf16, "bf16_kernel_vs_plain_attention_prefill": vs_plain,
+            "f32_2_layers_decode_vs_prefill": f32,
+            "bars": {"bf16_max_abs_dlogit": LM_BF16_DECODE_ATOL,
+                     "f32_max_abs_dlogit": LM_F32_DECODE_ATOL},
+            "bf16_reduced_precision_reduction": False}
+    emit(line)
+    check(bf16["finite"], "lm_prefill bf16: logits not finite")
+    check(bf16["argmax_prefill"] == bf16["argmax_decode"],
+          f"lm_prefill bf16: decode argmax {bf16['argmax_decode']} != prefill "
+          f"{bf16['argmax_prefill']}")
+    check(bf16["max_abs_dlogit"] <= LM_BF16_DECODE_ATOL,
+          f"lm_prefill bf16: decode vs prefill max |dlogit| {bf16['max_abs_dlogit']}")
+    check(vs_plain["finite"] and vs_plain["max_abs_dlogit"] <= LM_BF16_DECODE_ATOL,
+          f"lm_prefill bf16: kernel vs plain attention prefill {vs_plain['max_abs_dlogit']}")
+    return cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_serve_phase(torch, dev, cfg, params) -> dict:
+    """The Engine at gemma2-27b's full width: every request finishes with
+    SERVE_NEW_TOKENS tokens, and the logits of the step that gives its
+    first token (the decode path, fed the prompt one token per step) are
+    held against prefill(prompt)'s last logits."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine, Request
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(32, 65, SERVE_REQUESTS)]
+    prefilled = []
+    for p in prompts:
+        logits, cache = M.prefill(params, cfg, {"tokens": torch.tensor([p], device=dev)})
+        del cache
+        prefilled.append(logits[0])
+    eng = Engine(cfg, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN, device=dev)
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    first_logits = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.active):
+        eng.step()
+        for s, r in enumerate(eng.active):
+            if r is not None and len(r.out) == 1 and id(r) not in first_logits:
+                first_logits[id(r)] = eng.last_logits[s].clone()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = eng.steps_run
+    generated = sum(len(r.out) for r in reqs)
+    # a profiled window of 5 steps over 4 fresh requests, after 3 warm steps
+    for p in prompts[:SERVE_SLOTS]:
+        eng.submit(Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
+    for _ in range(3):
+        eng.step()
+    profile = device_profile(torch, lambda: [eng.step() for _ in range(5)])
+    rows = []
+    for r, want in zip(reqs, prefilled):
+        got = first_logits[id(r)]
+        top2 = torch.topk(want, 2).values
+        rows.append({"prompt_tokens": len(r.prompt), "new_tokens": len(r.out),
+                     "first_token": r.out[0], "prefill_argmax": int(want.argmax()),
+                     "step_argmax": int(got.argmax()),
+                     "prefill_top2_gap": float(top2[0] - top2[1]),
+                     "max_abs_dlogit": float((got - want).abs().max())})
+    line = {"phase": "lm_serve", "phase_s": time.perf_counter() - t_phase,
+            "arch": LM_ARCH, "layers": cfg.n_layers,
+            "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE_LEN, "requests": SERVE_REQUESTS,
+            "new_tokens": SERVE_NEW_TOKENS, "engine_steps": steps, "seconds": seconds,
+            "ms_per_step": seconds * 1e3 / steps,
+            "generated_tokens_per_s": generated / seconds,
+            "step_profile_5_steps": profile,
+            "first_token_vs_prefill": rows, "bar_max_abs_dlogit": LM_BF16_DECODE_ATOL,
+            "tie_gap": SERVE_TIE_GAP,
+            "first_tokens_equal_prefill_argmax": sum(r["first_token"] == r["prefill_argmax"]
+                                                     for r in rows)}
+    emit(line)
+    for i, row in enumerate(rows):
+        check(row["new_tokens"] == SERVE_NEW_TOKENS and reqs[i].done,
+              f"lm_serve: request {i} ended with {row['new_tokens']} tokens")
+        check(row["first_token"] == row["step_argmax"],
+              f"lm_serve: request {i} took {row['first_token']}, its step's argmax is "
+              f"{row['step_argmax']}")
+        check(row["max_abs_dlogit"] <= LM_BF16_DECODE_ATOL,
+              f"lm_serve: request {i} first-step logits vs prefill {row['max_abs_dlogit']}")
+        check(row["first_token"] == row["prefill_argmax"]
+              or row["prefill_top2_gap"] <= SERVE_TIE_GAP,
+              f"lm_serve: request {i} first token {row['first_token']} != prefill argmax "
+              f"{row['prefill_argmax']} with a top-2 gap of {row['prefill_top2_gap']}")
+    del eng
+    return line
 
 
 def main() -> int:
@@ -121,6 +527,7 @@ def smoke(torch) -> int:
     from repro_torch.core import ogasched
     from repro_torch.device import gpu_name_and_power_limit, platform_info
     from repro_torch.kernels import autotune, build, ops, ref
+    from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import oga_step as og_kernel
     from repro_torch.kernels import proj_bisect as pb_kernel
     from repro_torch.kernels import sortscan as ss_kernel
@@ -130,9 +537,12 @@ def smoke(torch) -> int:
     autotune.reset_stats()
     check(autotune.lookup("oga_step", 768, 10) is None, "the autotune cache is not empty")
 
-    # no matmul or convolution runs here; pin full float32 all the same
+    # full float32 matmuls and convolutions (no TF32), and bf16 matmuls
+    # whose split-K partial sums are not reduced in bf16 (cuBLAS may do so
+    # by default): the LM phases hold float32 and bf16 paths to tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = gpu_name_and_power_limit()
     check(smi is not None, "nvidia-smi is missing")
     print(smi, flush=True)
@@ -341,9 +751,13 @@ def smoke(torch) -> int:
           "timing": f"ms: device time, median of {TIMING_REPS} back-to-back calls "
                     f"between CUDA events behind a GPU spin; call_ms: host time of "
                     f"one call to completion, median of {TIMING_REPS}"})
+    flash = flash_phase(torch, dev)
+    emit(flash)
 
     # ------------------------------------------------------------- autotune
-    wrappers = (og_kernel.oga_step_fused, ss_kernel.proj_sortscan, pb_kernel.proj_bisect)
+    names = ("oga_step_fused", "proj_sortscan", "proj_bisect", "flash_attention")
+    wrappers = (og_kernel.oga_step_fused, ss_kernel.proj_sortscan, pb_kernel.proj_bisect,
+                fa_kernel.flash_attention)
 
     def zero_launches():
         for w in wrappers:
@@ -384,7 +798,7 @@ def smoke(torch) -> int:
         }
     tune_s = time.perf_counter() - t0
     tune_launches = launches()
-    for name, n in zip(("oga_step_fused", "proj_sortscan", "proj_bisect"), tune_launches):
+    for name, n in zip(names[:3], tune_launches):
         check(n > 0, f"{name} was not launched on the autotune path")
     # every legal row block of both sortscan kernels gives the bits of one
     # block per row, at every tuned shape and at a ragged row count
@@ -407,8 +821,7 @@ def smoke(torch) -> int:
     emit({"phase": "autotune", "cache": "fresh temporary directory",
           "oga_step": tuned, "proj": tuned_proj, "seconds": tune_s,
           "measurements": autotune.measurement_count(),
-          "launches": dict(zip(("oga_step_fused", "proj_sortscan", "proj_bisect"),
-                               tune_launches)),
+          "launches": dict(zip(names, tune_launches)),
           "bitwise_equal_row_blocks": bitwise,
           "timing": f"us: device time per launch, median of {autotune.TUNE_REPEATS} "
                     f"launches between CUDA events behind a GPU spin"})
@@ -561,26 +974,36 @@ def smoke(torch) -> int:
     stats = autotune.cache_stats()
     check(stats["measurements"] == 0 and stats["misses"] == 0,
           f"the warmed main path measured or missed the autotune cache: {stats}")
+    counts = launches()
+    for name, n in zip(names[:2], counts):
+        check(n > 0, f"{name} was not launched on the main path")
+
+    # ----------------------------------------------------------- serve path
+    del batch, spec_g, arr_g, out_g, spec2, arr2, sub
+    torch.cuda.empty_cache()
+    zero_launches()
+    lm_cfg, lm_params = lm_prefill_phase(torch, dev)
+    lm_serve_phase(torch, dev, lm_cfg, lm_params)
+    del lm_params
+    torch.cuda.empty_cache()
+    serve_counts = launches()
+    check(serve_counts[3] > 0, "flash_attention was not launched on the serve path")
 
     # ---------------------------------------------------------- kernel line
-    counts = launches()
-    for name, n in zip(("oga_step_fused", "proj_sortscan"), counts):
-        check(n > 0, f"{name} was not launched on the main path")
+    paths = {"autotune": tune_launches, "main": counts, "serve": serve_counts}
     emit({"phase": "paths", "autotune_cache": stats,
-          "launches": {"autotune": dict(zip(("oga_step_fused", "proj_sortscan", "proj_bisect"),
-                                            tune_launches)),
-                       "main": dict(zip(("oga_step_fused", "proj_sortscan", "proj_bisect"),
-                                        counts))}})
+          "launches": {p: dict(zip(names, c)) for p, c in paths.items()}})
     csrc = "src/repro_torch/kernels/csrc/"
 
     def by_path(i):
         """A kernel's launches on each path; "launches" is their sum."""
-        return {"main": counts[i], "autotune": tune_launches[i]}
+        return {p: c[i] for p, c in paths.items()}
 
+    fl = flash["path_bf16"]["global"]
     emit({"kernels": [
         {"name": "oga_step_fused", "route": "cuda", "source": csrc + "oga_step.cu",
          "replaces": "src/repro/kernels/oga_step.py:107",
-         "launches": counts[0] + tune_launches[0],
+         "launches": sum(by_path(0).values()),
          "launches_by_path": by_path(0),
          "max_abs_err": max(r["max_abs_err"] for r in oga_rows.values()),
          "ms": oga_rows["fig2"]["ms"], "plain_ms": oga_rows["fig2"]["plain_ms"],
@@ -588,7 +1011,7 @@ def smoke(torch) -> int:
          "library_ms": None},
         {"name": "proj_sortscan", "route": "cuda", "source": csrc + "oga_step.cu",
          "replaces": "src/repro/kernels/sortscan.py:171",
-         "launches": counts[1] + tune_launches[1],
+         "launches": sum(by_path(1).values()),
          "launches_by_path": by_path(1),
          "max_abs_err": max(r["max_abs_err"] for r in proj_rows.values()),
          "ms": proj_rows["fig2"]["ms"], "plain_ms": proj_rows["fig2"]["plain_ms"],
@@ -596,12 +1019,24 @@ def smoke(torch) -> int:
          "library_ms": None},
         {"name": "proj_bisect", "route": "cuda", "source": csrc + "proj_bisect.cu",
          "replaces": "src/repro/kernels/proj_bisect.py:89",
-         "launches": counts[2] + tune_launches[2],
+         "launches": sum(by_path(2).values()),
          "launches_by_path": by_path(2),
          "max_abs_err": max(r["max_abs_err"] for r in bisect_rows.values()),
          "ms": bisect_rows["fig2"]["ms"], "plain_ms": bisect_rows["fig2"]["plain_ms"],
          "bound_ms": bisect_rows["fig2"]["bound_ms"], "bound_by": bisect_rows["fig2"]["bound_by"],
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda", "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:64",
+         "launches": sum(by_path(3).values()),
+         "launches_by_path": by_path(3),
+         "max_abs_err": max([r["max_abs_err"] for r in flash["small_f32"]] +
+                            [r["max_abs_err"] for r in flash["path_bf16"].values()]),
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+         "library_ms": flash["library"]["library_ms"],
+         "library_vs_kernel_without_softcap_ms": flash["library"]["kernel_ms"],
+         "window4096": {k: flash["path_bf16"]["window4096"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 
 A test feeds both packages the same cluster spec, arrivals and initial
 decision: it builds them once as numpy arrays (or reads the reference's
-``ClusterSpec`` through ``np.asarray``) and hands them to the port here.
-Nothing in this module imports JAX.
+``ClusterSpec`` through ``np.asarray``) and hands them to the port here;
+likewise an LM's parameters (``params_from_reference``). Nothing in this
+module imports JAX.
 """
 from __future__ import annotations
 
@@ -39,3 +40,37 @@ def spec_from_reference(obj, device: DeviceLike = None) -> ClusterSpec:
     return spec_from_numpy(
         *(np.asarray(getattr(obj, f)) for f in ClusterSpec.FIELDS), device=device
     )
+
+
+def _leaf_tensor(x, dev: torch.device, dtype) -> torch.Tensor:
+    """A numpy-like leaf as a ``dtype`` tensor on ``dev``. A bf16 array
+    (numpy dtype ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) goes through float32, which holds every bf16 value exactly."""
+    arr = np.asarray(x)
+    if arr.dtype.kind not in "iub":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def params_from_reference(cfg, params_np, device: DeviceLike = None) -> dict:
+    """The port's LM parameters from the reference's pytree (as numpy
+    arrays, or anything ``np.asarray`` reads): every leaf in the config's
+    parameter dtype on ``device``, and ``blocks``, whose leaves the
+    reference stacks on a leading (n_layers,) axis, unstacked into a list
+    of per-layer dicts. Matrices keep the reference's ``x @ W`` layout."""
+    from repro_torch.models.model import param_dtype
+
+    dev = resolve_device(device)
+    dtype = param_dtype(cfg)
+    out = {k: _tree(v, lambda a: _leaf_tensor(a, dev, dtype))
+           for k, v in params_np.items() if k != "blocks"}
+    stacked = _tree(params_np["blocks"], np.asarray)
+    out["blocks"] = [_tree(stacked, lambda a, i=i: _leaf_tensor(a[i], dev, dtype))
+                     for i in range(cfg.n_layers)]
+    return out

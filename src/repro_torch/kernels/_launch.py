@@ -9,15 +9,15 @@ import torch
 from repro_torch.kernels import autotune, build
 
 
-def check_operands(names, tensors, shapes) -> None:
-    """Every operand a contiguous float32 tensor on one CUDA device with its
-    expected shape; raises on anything else."""
+def check_operands(names, tensors, shapes, dtype=torch.float32) -> None:
+    """Every operand a contiguous ``dtype`` tensor on one CUDA device with
+    its expected shape; raises on anything else."""
     dev = tensors[0].device
     for name, t, want in zip(names, tensors, shapes):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the other operands on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes {dtype} here")
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(want)}")
         if not t.is_contiguous():
@@ -45,14 +45,32 @@ def check_iters(iters: int) -> int:
 
 
 @functools.cache
-def _entry(source: str, symbol: str, n_ptrs: int, n_ints: int):
-    """The C entry ``symbol`` of the library built from ``source``: n_ptrs
-    pointers, then n_ints ints, then the stream, pointers as c_void_p."""
+def c_entry(source: str, symbol: str, argtypes: tuple):
+    """The C entry ``symbol`` of the library built from ``source``, with
+    its ctypes ``argtypes`` declared (each argument its own type: a float
+    passed as c_int arrives as garbage, a pointer as c_int is cut to 32
+    bits) and an int return, the CUDA error of the launch."""
     fn = getattr(build.library(source), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def _entry(source: str, symbol: str, n_ptrs: int, n_ints: int):
+    """A row-kernel entry: n_ptrs pointers, then n_ints ints, then the
+    stream."""
+    return c_entry(source, symbol, (ctypes.c_void_p,) * n_ptrs
+                   + (ctypes.c_int,) * n_ints + (ctypes.c_void_p,))
+
+
+def call(fn, device: torch.device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and PyTorch's current stream of
+    ``device`` last; raises if CUDA refused the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {fn.__name__} failed with error {rc}")
 
 
 def launch(source: str, symbol: str, operands, out: torch.Tensor, L: int,
@@ -62,8 +80,4 @@ def launch(source: str, symbol: str, operands, out: torch.Tensor, L: int,
     row_block, *extra). Raises if CUDA refuses the launch."""
     ints = (out.shape[0], L, autotune.slots_for(L), row_block, *extra)
     fn = _entry(source, symbol, len(operands) + 1, len(ints))
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in operands), out.data_ptr(), *ints, stream)
-    if rc != 0:
-        raise RuntimeError(f"CUDA launch of {symbol} failed with error {rc}")
+    call(fn, out.device, *(t.data_ptr() for t in operands), out.data_ptr(), *ints)

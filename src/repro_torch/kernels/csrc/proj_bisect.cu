@@ -3,13 +3,17 @@
 // proj_bisect_kernel replaces the TPU kernel src/repro/kernels/proj_bisect.py
 // (proj_bisect, _kernel): each row of z (N, L) is projected onto
 // {0 <= y <= a, sum_l m_l y_l <= c} with the seeded-bracket bisection and
-// secant finish of bisect.cuh, in float32. Layout as in oga_step.cu:
+// secant finish of bisect.cuh. Operands are float32 or bf16 (z, a, mask, c
+// and the output of one type); the water level is solved in float32
+// either way, and a bf16 output is rounded to nearest even once, at the
+// store. Layout as in oga_step.cu:
 // row_block rows of P = slots_for(L) threads per block, each row
 // synchronising on its own.
 //
 // Bound on the H100: bytes, 4 N (4L + 1): 0.038 us at (768, 10) and
 // 2.94 us at (6144, 100) at 3.35 TB/s. Per row (iters + 4) reductions of
 // L float32 lanes; no sort, and no shared memory beyond one float per warp.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "bisect.cuh"
@@ -18,25 +22,46 @@ namespace repro_torch {
 
 constexpr int kMaxIters = 64;
 
-template <int kSync>
-__global__ void proj_bisect_kernel(const float* __restrict__ z,
-                                   const float* __restrict__ a,
-                                   const float* __restrict__ mask,
-                                   const float* __restrict__ c,
-                                   float* __restrict__ out, int n, int L, int p, int iters) {
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <typename T, int kSync>
+__global__ void proj_bisect_kernel(const T* __restrict__ z,
+                                   const T* __restrict__ a,
+                                   const T* __restrict__ mask,
+                                   const T* __restrict__ c,
+                                   T* __restrict__ out, int n, int L, int p, int iters) {
   extern __shared__ float smem[];
   const auto g = row_group<kSync>(p);
   const long long row = row_index(g);
   if (row >= n) return;  // a whole row leaves: it waits at no barrier of another
   const bool has_lane = g.i < L;
   const long long idx = row * L + g.i;
-  const float zl = has_lane ? z[idx] : 0.0f;
-  const float al = has_lane ? a[idx] : 0.0f;
-  const float ml = has_lane ? mask[idx] : 0.0f;
+  const float zl = has_lane ? load_f32(z + idx) : 0.0f;
+  const float al = has_lane ? load_f32(a + idx) : 0.0f;
+  const float ml = has_lane ? load_f32(mask + idx) : 0.0f;
   float* red = bisect_row_smem(smem, g);
   bool need;
-  const float tau = bisect_water_level(zl, al, ml, has_lane, c[row], iters, red, g, &need);
-  if (has_lane) out[idx] = bisect_fill(zl, al, ml, tau, need);
+  const float tau = bisect_water_level(zl, al, ml, has_lane, load_f32(c + row), iters, red, g,
+                                       &need);
+  if (has_lane) store_as(out + idx, bisect_fill(zl, al, ml, tau, need));
+}
+
+template <typename T>
+int launch_proj_bisect(const T* z, const T* a, const T* mask, const T* c, T* out, int n, int L,
+                       int threads, int row_block, int iters, void* stream) {
+  if (!legal_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  with_sync_mode(threads, row_block, [&](auto sync) {
+    proj_bisect_kernel<T, decltype(sync)::value>
+        <<<(n + row_block - 1) / row_block, row_block * threads,
+           row_block * bisect_smem_bytes(threads), static_cast<cudaStream_t>(stream)>>>(
+            z, a, mask, c, out, n, L, threads, iters);
+  });
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
@@ -46,15 +71,14 @@ __global__ void proj_bisect_kernel(const float* __restrict__ z,
 extern "C" int repro_proj_bisect(const float* z, const float* a, const float* mask,
                                  const float* c, float* out, int n, int L, int threads,
                                  int row_block, int iters, void* stream) {
-  using namespace repro_torch;
-  if (!legal_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  with_sync_mode(threads, row_block, [&](auto sync) {
-    proj_bisect_kernel<decltype(sync)::value>
-        <<<(n + row_block - 1) / row_block, row_block * threads,
-           row_block * bisect_smem_bytes(threads), static_cast<cudaStream_t>(stream)>>>(
-            z, a, mask, c, out, n, L, threads, iters);
-  });
-  return static_cast<int>(cudaGetLastError());
+  return repro_torch::launch_proj_bisect(z, a, mask, c, out, n, L, threads, row_block, iters,
+                                         stream);
+}
+
+extern "C" int repro_proj_bisect_bf16(const __nv_bfloat16* z, const __nv_bfloat16* a,
+                                      const __nv_bfloat16* mask, const __nv_bfloat16* c,
+                                      __nv_bfloat16* out, int n, int L, int threads,
+                                      int row_block, int iters, void* stream) {
+  return repro_torch::launch_proj_bisect(z, a, mask, c, out, n, L, threads, row_block, iters,
+                                         stream);
 }

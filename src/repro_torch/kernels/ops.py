@@ -8,6 +8,7 @@ round trip is exact. ``backend="fused"`` runs the fused OGA step
 plain version on the CPU), its row block resolved from ``kernels.autotune``
 on CUDA tensors and never on the CPU; ``backend="reference"`` runs
 gradient, ascent and projection as separate spec-level torch passes.
+``flash_attention`` dispatches causal attention to its kernel's wrapper.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.core import projection as _projection
 from repro_torch.core import reward as _reward
 from repro_torch.kernels import autotune as _at
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import oga_step as _og
 from repro_torch.kernels import proj_bisect as _pb
 from repro_torch.kernels import sortscan as _ss
@@ -200,3 +202,9 @@ def proj_sortscan(z, a, mask, c, *, tiling=None):
     autotune cache."""
     cfg = _tiling("proj", z, tiling)
     return _ss.proj_sortscan(z, a, mask, c, row_block=cfg.row_block)
+
+
+def flash_attention(q, k, v, *, window=None, softcap=None):
+    """Causal GQA attention: the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors (``kernels.flash_attention``)."""
+    return _fa.flash_attention(q, k, v, window=window, softcap=softcap)

@@ -12,13 +12,17 @@ this is the A/B baseline the tuner measures against it.
 ``proj_bisect`` is the wrapper of the CUDA kernel ``proj_bisect_kernel``
 (``csrc/proj_bisect.cu`` over ``csrc/bisect.cuh``): on CUDA tensors it
 launches the kernel, on CPU tensors it computes the plain version
-``ref.proj_rows_bisect``. float32 only.
+``ref.proj_rows_bisect``. Operands are float32 or bf16, all of one type,
+and the result has that type; the water level is solved in float32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _launch, autotune, ref
+
+# the C entry of each operand type
+_SYMBOLS = {torch.float32: "repro_proj_bisect", torch.bfloat16: "repro_proj_bisect_bf16"}
 
 
 def proj_bisect(z, a, mask, c, *, row_block=None, iters=None) -> torch.Tensor:
@@ -35,14 +39,16 @@ def proj_bisect(z, a, mask, c, *, row_block=None, iters=None) -> torch.Tensor:
         return ref.proj_rows_bisect(z, a, mask, c, iters=it)
     if z.device.type != "cuda":
         raise ValueError(f"proj_bisect runs on cuda or cpu tensors, not {z.device}")
+    if z.dtype not in _SYMBOLS:
+        raise TypeError(f"proj_bisect takes float32 or bfloat16, not {z.dtype}")
     N, L = z.shape
     _launch.check_operands(("z", "a", "mask", "c"), (z, a, mask, c),
-                           [(N, L), (N, L), (N, L), (N,)])
+                           [(N, L), (N, L), (N, L), (N,)], dtype=z.dtype)
     rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L)
     out = torch.empty_like(z)
     if N == 0:
         return out
-    _launch.launch("proj_bisect.cu", "repro_proj_bisect", (z, a, mask, c), out, L, rb, it)
+    _launch.launch("proj_bisect.cu", _SYMBOLS[z.dtype], (z, a, mask, c), out, L, rb, it)
     proj_bisect.launches += 1
     return out
 

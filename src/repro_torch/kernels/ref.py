@@ -112,3 +112,42 @@ def oga_step_ref(y, a, mask, x, kstar, scal, proj: str = "sorted",
     if proj == "sorted":
         return proj_rows_sorted(z, a, mask, c)
     return proj_rows_bisect(z, a, mask, c, iters)
+
+
+# score of a masked (query, key) pair, as in the reference attention
+ATTN_MASKED = -1e30
+
+
+def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 256):
+    """Causal GQA attention, blockwise over query blocks (the port of
+    ``repro.models.attention.attention``, the flash kernel's oracle).
+
+    q: (B, S, H, hd); k, v: (B, S, G, hd), H = G * rep. Scores in float32,
+    scaled by hd^-0.5, softcapped, then the causal mask and, when
+    ``window`` > 0, the window (qpos - kpos) < window, with masked scores at
+    -1e30; softmax over all S keys; the output in q's dtype. Only a
+    (q_block, S) score tile per head is alive at once. A ragged last block
+    (S not a multiple of ``q_block``) is taken as it is.
+    """
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    rep = H // G
+    bq = min(q_block, S)
+    scale = hd ** -0.5
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(S, device=q.device)
+    out = torch.empty_like(q)
+    for q0 in range(0, S, bq):
+        qi = q[:, q0:q0 + bq].float()
+        n = qi.shape[1]
+        qpos = q0 + torch.arange(n, device=q.device)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qi.reshape(B, n, G, rep, hd), kf) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        m = kpos[None, :] <= qpos[:, None]
+        if window is not None and window > 0:
+            m &= (qpos[:, None] - kpos[None, :]) < window
+        p = torch.softmax(s.masked_fill(~m, ATTN_MASKED), dim=-1)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
+        out[:, q0:q0 + n] = o.reshape(B, n, H, hd).to(q.dtype)
+    return out

@@ -1,0 +1,60 @@
+"""Causal GQA attention for prefill, and one-token decode over a KV cache.
+
+Counterpart of ``repro.models.attention``. ``attention`` is always causal
+and takes a per-layer ``window`` (<= 0 or None: global) and a logit
+softcap; on a CUDA tensor it runs the hand-written flash kernel
+(``kernels.ops.flash_attention``), on a CPU tensor the plain blockwise
+version (``kernels.ref.flash_attention_ref``), which computes the same
+function. ``decode_attention`` is plain torch on either device, as the
+reference's is jnp outside any kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.models.layers import softcap
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: Optional[int] = None,
+              attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, G, hd) with H = G * rep. Returns like q.
+
+    The CPU branch calls the plain version itself, not the wrapper: the
+    wrapper refuses on every device what the kernel does not take (head
+    dims outside ``autotune.FLASH_HEAD_DIMS``), and the reduced configs'
+    head dim, 16, is one of those.
+    """
+    if q.device.type == "cuda":
+        return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap)
+    return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: torch.Tensor, key_positions: torch.Tensor, *,
+                     window: Optional[int] = None,
+                     attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """One-token decode. q: (B, 1, H, hd); caches: (B, S, G, hd).
+
+    ``key_positions`` (B, S) holds each cache slot's absolute token position
+    per row (empty slots a large sentinel); ``pos`` (B,) is each row's
+    current position, its slot already written. A key is seen when
+    kpos <= pos and, for window > 0, (pos - kpos) < window.
+    """
+    B, _, H, hd = q.shape
+    G = k_cache.shape[2]
+    rep = H // G
+    qg = q.reshape(B, G, rep, hd).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * hd ** -0.5
+    s = softcap(s, attn_softcap)
+    m = key_positions <= pos[:, None]  # (B, S)
+    if window is not None and window > 0:
+        m &= (pos[:, None] - key_positions) < window
+    s = s.masked_fill(~m[:, None, None], ref.ATTN_MASKED)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)

@@ -196,3 +196,24 @@ def test_project_rejects_unknown_methods():
     assert tproj.PROJECT_METHODS == jproj.PROJECT_METHODS
     with pytest.raises(ValueError):
         tproj.project(tspec, torch.zeros((3, 2, 2)), method="newton")
+
+
+def test_proj_bisect_bf16():
+    """bf16 z, a, mask and c (the reference's test_proj_bisect_bf16): the
+    result is bf16, within 0.3 of the float64 oracle on the float32 casts
+    (the reference's bar: bf16 inputs of size ~5 round by up to 0.016 and
+    the water level moves with them), and within two bf16 ulps at |y| < 4
+    (2^-5) of the reference's Pallas kernel on the same bf16 inputs: both
+    solve in float32 and round once at the end."""
+    rng = _rng(40)
+    z, a, _, c = _proj_inputs(rng, 16, 32)
+    m = np.ones_like(z)
+    tz, ta, tm, tc = (torch.from_numpy(t).to(torch.bfloat16) for t in (z, a, m, c))
+    got = tpb.proj_bisect(tz, ta, tm, tc)
+    assert got.dtype == torch.bfloat16
+    want = tref.proj_rows_exact_np(tz.float().numpy(), ta.float().numpy(), m,
+                                   tc.float().numpy())
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.3)
+    jz, ja, jm, jc = (jnp.asarray(t).astype(jnp.bfloat16) for t in (z, a, m, c))
+    pallas = np.asarray(pallas_proj_bisect(jz, ja, jm, jc, interpret=True), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), pallas, atol=2 ** -5)

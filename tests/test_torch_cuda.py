@@ -9,17 +9,27 @@ kernel's projection solves in float64, the plain one in float32); 1e-6
 for the sortscan projection against the float64 oracle; 5e-5 for every
 bisection result (the reference's bar for its bisect kernel: the bracket
 width / 2^iters); none across row blocks, where the outputs are equal bit
-for bit.
+for bit. bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
+|y| < 4; both solve in float32 and round once). Flash attention against
+its plain version: 2e-5 in float32 (the reference's bar; the kernel sums
+in another order); in bf16 1e-4 + 2^-6 |o| and at most 0.05 (the
+reference's bf16 bar): both compute in float32 and round once, so they
+differ by a rounding flip, one ulp <= 2^-7 |o|; the LM on the
+card against the CPU in float32: 1e-3 on logits (float32 matmuls in
+another order, two layers deep, logits of size ~1-30).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import ogasched
+from repro_torch.configs import base as tconfigs
 from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import oga_step as toga
 from repro_torch.kernels import proj_bisect as tpb
 from repro_torch.kernels import sortscan as tss
+from repro_torch.models import model as TM
 from repro_torch.sched import sweep, trace
 
 BISECT_ATOL = 5e-5
@@ -237,3 +247,73 @@ def test_tune_times_every_candidate_on_the_card(dev, cache):
     assert autotune.lookup("proj", 256, 10) is None
     win, _ = autotune.tune("oga_step", 768, 10, repeats=3)
     assert autotune.resolve("oga_step", 768, 10) == win
+
+
+def test_proj_bisect_kernel_takes_bf16(dev):
+    z, a, m, c = _proj_args(_rng(8), 768, 10)
+    args = [torch.from_numpy(t).to(dev, torch.bfloat16) for t in (z, a, m, c)]
+    got = ops.proj_bisect(*args)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.proj_rows_bisect(*args).float(),
+                               atol=2 ** -5, rtol=0)
+    with pytest.raises(TypeError):
+        ops.proj_bisect(args[0], *(t.float() for t in args[1:]))
+
+
+def _qkv(rng, B, S, H, G, hd, dev, dtype):
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+            for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
+
+
+@pytest.mark.parametrize("B,S,H,G,hd,window,softcap", [
+    (1, 128, 4, 2, 64, None, None), (2, 256, 4, 1, 64, None, None),
+    (1, 256, 8, 8, 128, None, None), (2, 512, 2, 1, 64, None, None),
+    (1, 256, 4, 2, 80, None, None), (1, 256, 4, 2, 64, 128, None),
+    (1, 256, 4, 2, 64, None, 30.0), (1, 256, 4, 2, 64, 128, 50.0),
+    (1, 191, 4, 2, 128, 64, 50.0), (3, 77, 6, 3, 80, 0, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dev, B, S, H, G, hd, window, softcap, dtype):
+    q, k, v = _qkv(_rng(9, S, hd), B, S, H, G, hd, dev, dtype)
+    before = tfa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1 and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -6)
+        assert float((got.float() - want.float()).abs().max()) <= 0.05
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """q, k, v as views of one fused (B, S, H + 2G, hd) tensor: read through
+    their strides, nothing copied."""
+    B, S, H, G, hd = 2, 200, 4, 2, 128
+    qkv = torch.randn(B, S, H + 2 * G, hd, device=dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + G], qkv[:, :, H + G:]
+    got = ops.flash_attention(q, k, v, window=64, softcap=50.0)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   window=64, softcap=50.0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "stablelm-3b"])
+def test_lm_prefill_on_the_card_matches_cpu(dev, arch):
+    """A reduced config widened to a head dim the kernel takes: prefill on
+    the card (one kernel launch per layer) against the plain CPU path."""
+    cfg = tconfigs.reduced(tconfigs.get(arch), head_dim=64, n_layers=3)
+    params = TM.init_params(cfg, 0, "cpu")
+    toks = torch.from_numpy(_rng(10).integers(0, cfg.vocab, (2, 96)))
+    want, wcache = TM.prefill(params, cfg, {"tokens": toks})
+    on_card = {k: ([{n: {m: t.to(dev) for m, t in d.items()} if isinstance(d, dict)
+                     else d.to(dev) for n, d in blk.items()} for blk in v]
+                   if k == "blocks" else v.to(dev)) for k, v in params.items()}
+    before = tfa.flash_attention.launches
+    got, gcache = TM.prefill(on_card, cfg, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
+    torch.testing.assert_close(gcache["k"].cpu(), wcache["k"], atol=1e-3, rtol=0)

@@ -1,0 +1,102 @@
+"""The port's flash attention on the CPU (its plain version) against the JAX
+package: the Pallas kernel in interpret mode and its oracle
+``repro.kernels.ref.flash_attention_ref``, on the same numpy inputs.
+
+Tolerances: 2e-5 in float32 (the reference's own bar for its kernel
+against its oracle; the two sum the scores in another order), 0.05 in
+bf16 (the reference's bf16 bar: one bf16 rounding of outputs of size ~1).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as tattn
+
+F32_ATOL = 2e-5
+BF16_ATOL = 0.05
+
+
+def _qkv(seed, B, S, H, G, hd):
+    rng = np.random.default_rng(np.random.SeedSequence(2029, spawn_key=(seed,)))
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
+
+
+def _port(arrays, dtype=torch.float32, **kw):
+    out = ops.flash_attention(*(torch.from_numpy(a).to(dtype) for a in arrays), **kw)
+    return out.float().numpy()
+
+
+def _check_both(arrays, got, atol, dtype=jnp.float32, window=None, softcap=None):
+    jarr = [jnp.asarray(a).astype(dtype) for a in arrays]
+    kernel = pallas_flash(*jarr, window=window, softcap=softcap, interpret=True)
+    oracle = jref.flash_attention_ref(*jarr, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(kernel, np.float32), atol=atol, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(oracle, np.float32), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,G,hd", [(1, 128, 4, 2, 64), (2, 256, 4, 1, 64),
+                                        (1, 256, 8, 8, 128), (2, 512, 2, 1, 64),
+                                        (1, 128, 4, 2, 80)])
+def test_plain_flash_matches_reference_shapes(B, S, H, G, hd):
+    arrays = _qkv(S + hd, B, S, H, G, hd)
+    _check_both(arrays, _port(arrays), F32_ATOL)
+
+
+@pytest.mark.parametrize("window,softcap", [(128, None), (None, 30.0), (128, 50.0)])
+def test_plain_flash_matches_reference_window_softcap(window, softcap):
+    arrays = _qkv(5, 1, 256, 4, 2, 64)
+    got = _port(arrays, window=window, softcap=softcap)
+    _check_both(arrays, got, F32_ATOL, window=window, softcap=softcap)
+
+
+def test_window_zero_is_global():
+    arrays = _qkv(6, 1, 256, 4, 2, 64)
+    got = _port(arrays, window=0, softcap=50.0)
+    np.testing.assert_array_equal(got, _port(arrays, softcap=50.0))
+    _check_both(arrays, got, F32_ATOL, softcap=50.0)
+
+
+def test_plain_flash_matches_reference_bf16():
+    arrays = _qkv(9, 1, 128, 2, 1, 64)
+    got = _port(arrays, dtype=torch.bfloat16)
+    _check_both(arrays, got, BF16_ATOL, dtype=jnp.bfloat16)
+
+
+def test_ragged_query_blocks_match_one_block():
+    """S not a multiple of the query block: the ragged last block (the
+    kernel's case at a 8191-token prompt) gives the function of one block."""
+    arrays = _qkv(11, 1, 200, 4, 2, 64)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = ref.flash_attention_ref(*t, window=64, softcap=50.0, q_block=64).numpy()
+    want = jattn.attention(*map(jnp.asarray, arrays), window=jnp.asarray(64),
+                           attn_softcap=50.0, q_block=200)
+    np.testing.assert_allclose(got, np.asarray(want), atol=F32_ATOL, rtol=0)
+
+
+def test_model_attention_on_the_cpu_is_the_plain_version():
+    t = [torch.from_numpy(a) for a in _qkv(12, 1, 64, 4, 2, 16)]  # hd 16: no kernel
+    before = tfa.flash_attention.launches
+    got = tattn.attention(*t, window=32, attn_softcap=50.0)
+    assert torch.equal(got, ref.flash_attention_ref(*t, window=32, softcap=50.0))
+    assert tfa.flash_attention.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(13, 1, 64, 4, 2, 64))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="divide"):
+        ops.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q, k, v.transpose(2, 3).contiguous().transpose(2, 3))
