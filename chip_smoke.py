@@ -24,11 +24,16 @@ Phases, each printing one JSON line:
   fig5     run_all at the paper's Fig. 5 large-scale config (T = 300).
   grid     sweep.make_grid -> build_batch -> run_grid -> summarize over 64
            Fig. 2 configs, one fused launch per step.
-  flash    the flash-attention kernel against its plain version: the
-           reference tests' float32 shapes (plus hd 80, windows, softcaps
-           and a ragged S), and gemma2-27b's prefill shape in bf16, global
-           and with window 4096, with CUDA-event times, the bound and the
-           time of torch's scaled_dot_product_attention beside it.
+  flash    both flash-attention kernels against their plain version: the
+           reference tests' shapes (plus hd 80, windows, softcaps, S = 1,
+           S around one 128-row tile and a ragged 8191) in float32 (the
+           scalar kernel) and bf16 (the tensor-core kernel), and
+           gemma2-27b's prefill shape, global and with window 4096, in bf16
+           and in float32, with CUDA-event times, the bound, the
+           special-function floor of the softmax (sfu_floor_ms) and the
+           time of torch's scaled_dot_product_attention beside it; ptxas's
+           registers and spills of the bf16 kernel, and the count of
+           HGMMA and UTMALDG instructions in the built library.
   lm_prefill  the LM serving path at gemma2-27b's full width: first the
            float32 check at 2 layers (prefill(S - 1) + serve_step against
            prefill(S)), then all 46 layers in bf16 from seeded random
@@ -42,7 +47,8 @@ miss it never. The kernel launch counters are set to 0 before the autotune
 path and read after it, again for the main path (fig2 to grid), and again
 for the serve path (lm_prefill and lm_serve). The line before the last
 lists every kernel with its launches on each path and their sum, its error
-and its times; the last line is {"ok": true, "device": {...}}. A failed
+and its times (flash attention as two kernels, bf16 and float32, behind
+one wrapper); the last line is {"ok": true, "device": {...}}. A failed
 check raises, and the exit code is then non-zero. Needs no network;
 imports nothing of JAX or of the reference package ``repro``.
 """
@@ -110,20 +116,38 @@ TIMING_REPS = 25
 # bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet): the
 # flash-attention bound counts its work at the rate the function needs
 BF16_OPS_PER_S = 989e12
-# Flash kernel against its plain version. float32: the reference's bar
-# (tests/test_kernels.py), 2e-5, at the small shapes and at the path shape
-# (scores summed in another order). bf16: kernel and plain version both
-# compute in float32 and round the output once, so they differ by at most
-# a rounding flip, one bf16 ulp <= 2^-7 |o|. The bar is two ulps, 2^-6 |o|,
-# plus 1e-4 for outputs near 0 (float32 sums in another order), and never
-# above the reference's 0.05. At the path shape |o| is ~sqrt(e / q), ~0.02
-# for most rows, where 0.05 would pass a tile dropped at the window's edge
-# (~1e-2); 2^-6 |o| + 1e-4 there is ~4e-4. FLASH_BF16_ATOL stays the bar of
-# the SDPA comparison, which rounds its probabilities to bf16.
+# Special-function results per clock per SM on Hopper (ex2, rcp): the bf16
+# flash kernel's softmax floor on those units. It issues one ex2 per
+# unmasked (query, key) pair. Its softcap is tanhf, accurate to float32,
+# which costs one ex2 and one rcp more only where |s| hd^-0.5 / softcap
+# reaches TANH_POLY_LIMIT; below it the kernel takes tanhf's polynomial on
+# the FMA pipe. The floor counts those pairs in this run's data.
+SFU_PER_CLOCK_PER_SM = 16
+TANH_POLY_LIMIT = 0.6
+# Flash kernels against their plain version. float32 (the scalar kernel):
+# the reference's bar (tests/test_kernels.py), 2e-5, at the small shapes and
+# at the path shape (scores summed in another order). bf16 (the tensor-core
+# kernel): the plain version computes p in float32; the kernel rounds P
+# once to bf16 before the PV product, as every tensor-core flash kernel and
+# SDPA do. V is exact in bf16, the sums are float32, so the rounding
+# (relative error <= 2^-9 per p) moves o_d by at most
+# 2^-9 sum_j p_j |v_jd| / l = 2^-9 |o|_abs,d, where |o|_abs is the plain
+# version run on |v|. Doubled for margin, 2^-8 |o|_abs. Beside it, the
+# output's own rounding (both round once; a flip is one ulp <= 2^-7 |o|,
+# two ulps 2^-6 |o|) and 1e-4 for outputs near 0 (float32 sums in another
+# order); never above the reference's bf16 bar 0.05. So
+# min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs), elementwise. The term in
+# |o|_abs matters where few keys make o cancel towards 0 (the first rows).
+# At the path shape |o|_abs is ~0.8 (the mean |v|), so the bar is ~3.5e-3,
+# still below the ~1e-2 of a K/V tile dropped at the window's edge.
+# The worst element is printed against this bar and against the bar
+# without that term. FLASH_BF16_ATOL stays the bar of the SDPA comparison,
+# which rounds its probabilities to bf16 too.
 FLASH_F32_ATOL = 2e-5
 FLASH_BF16_ATOL = 0.05
 FLASH_BF16_RTOL = 2.0 ** -6
 FLASH_BF16_NEAR0 = 1e-4
+FLASH_BF16_PROB = 2.0 ** -8
 FLASH_TIMING_REPS = 10
 # gemma2-27b's prefill shape: one 8192-token prompt (the model's context,
 # where the 4096 window bites on the local layers), 32 query heads over
@@ -186,44 +210,133 @@ def flash_pairs(S: int, window: int) -> int:
     return sum(min(q + 1, window) for q in range(S))
 
 
-def flash_bound(B, S, H, G, hd, window, elem_bytes):
+def flash_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s=BF16_OPS_PER_S):
     """The least time the H100 could take for the attention itself: 4 hd
-    FLOPs per head per unmasked pair at the bf16 tensor-core rate, or one
-    read of q, k, v and one write of o at the HBM rate; the larger."""
-    t_ops = 4 * hd * H * B * flash_pairs(S, window) / BF16_OPS_PER_S * 1e3
+    FLOPs per head per unmasked pair at ``ops_per_s`` (the bf16 tensor-core
+    rate, or the float32 rate for float32 inputs), or one read of q, k, v
+    and one write of o at the HBM rate; the larger."""
+    t_ops = 4 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
     t_bytes = elem_bytes * B * S * hd * (2 * H + 2 * G) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sm_max_clock_hz() -> float:
+    """The SM clock's maximum, as nvidia-smi reads it (clocks.max.sm)."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def flash_tanh_exp_pairs(torch, q, k, window, softcap) -> int:
+    """Unmasked (query, key) pairs, over every batch row and head, whose
+    softcap argument |s| hd^-0.5 / softcap reaches TANH_POLY_LIMIT: the
+    pairs on which the bf16 kernel's tanhf issues its ex2 and rcp."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    lag = pos[:, None] - pos[None, :]
+    mask = (lag >= 0) & (lag < window) if window > 0 else lag >= 0
+    limit = TANH_POLY_LIMIT * softcap * hd ** 0.5
+    n = 0
+    for b in range(B):
+        for h in range(H):
+            s = q[b, :, h].float() @ k[b, :, h // rep].float().T
+            n += int(((s.abs() >= limit) & mask).sum())
+    return n
+
+
+def flash_sfu_floor_ms(n_ops, sms, clock_hz) -> float:
+    """The special-function units' least time for ``n_ops`` results at
+    SFU_PER_CLOCK_PER_SM per clock on every SM: the bf16 kernel's softmax
+    floor, with one ex2 per unmasked pair of every head plus an ex2 and an
+    rcp on each pair where the softcap's tanhf leaves its polynomial."""
+    return n_ops / (sms * SFU_PER_CLOCK_PER_SM * clock_hz) * 1e3
+
+
+def flash_bf16_errors(got, want, want_abs) -> dict:
+    """The bf16 kernel's error against the plain version: max |diff|, the
+    worst element over the bar min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs),
+    and over the same bar without its |o|_abs term."""
+    diff = (got.float() - want.float()).abs()
+    base = FLASH_BF16_NEAR0 + FLASH_BF16_RTOL * want.float().abs()
+    bar = (base + FLASH_BF16_PROB * want_abs.float()).clamp(max=FLASH_BF16_ATOL)
+    return {"max_abs_err": float(diff.max()), "max_err_over_bar": float((diff / bar).max()),
+            "max_err_over_bar_without_p_term":
+                float((diff / base.clamp(max=FLASH_BF16_ATOL)).max())}
+
+
+def flash_kernel_ptxas(log: str, marker: str) -> list:
+    """ptxas's lines (registers, shared memory, spills) of the kernels whose
+    mangled name holds ``marker``, from a build log."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            keep = marker in ln
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif keep and ("registers" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
+def flash_sass_evidence(lib_path: str) -> dict:
+    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions the
+    built flash library holds, with a first line of each, from cuobjdump."""
+    import subprocess
+    from repro_torch.device import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout.splitlines()
+    ev = {}
+    for op in ("HGMMA", "UTMALDG"):
+        lines = [ln.strip() for ln in sass if op in ln]
+        ev[op] = {"count": len(lines), "first": lines[0] if lines else None}
+    return ev
+
+
 def flash_phase(torch, dev) -> dict:
-    """The flash kernel against its plain version on the card; times at
+    """Both flash kernels against their plain version on the card; times at
     gemma2-27b's prefill shape. Launches made here are not a path's."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(LM_SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = sm_max_clock_hz()
 
     def qkv(B, S, H, G, hd, dtype):
         return [torch.randn(shape, generator=gen, device=dev).to(dtype)
                 for shape in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
 
-    small = []
+    small = {"float32": [], "bfloat16": []}
     cases = [((1, 128, 4, 2, 64), None, None), ((2, 256, 4, 1, 64), None, None),
              ((1, 256, 8, 8, 128), None, None), ((2, 512, 2, 1, 64), None, None),
              ((1, 256, 4, 2, 80), None, None), ((1, 256, 4, 2, 64), 128, None),
              ((1, 256, 4, 2, 64), None, 30.0), ((1, 256, 4, 2, 64), 128, 50.0),
-             ((1, 191, 4, 2, 128), 64, 50.0)]
-    for shape, window, cap in cases:
-        q, k, v = qkv(*shape, torch.float32)
-        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
-        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(err <= FLASH_F32_ATOL, f"flash {shape} window={window} softcap={cap}: {err}")
-        small.append({"B_S_H_G_hd": shape, "window": window, "softcap": cap, "max_abs_err": err})
+             ((1, 191, 4, 2, 128), 64, 50.0), ((3, 1, 8, 1, 64), None, 50.0),
+             ((1, 127, 4, 4, 128), None, None), ((1, 128, 4, 2, 128), 200, None),
+             ((2, 129, 16, 2, 128), 16, 50.0), ((1, 8191, 4, 2, 80), 4096, 50.0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, window, cap in cases:
+            q, k, v = qkv(*shape, dtype)
+            got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+            want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap}
+            if dtype == torch.float32:
+                row["max_abs_err"] = float((got - want).abs().max())
+                check(row["max_abs_err"] <= FLASH_F32_ATOL,
+                      f"flash float32 {shape} window={window} softcap={cap}: {row}")
+            else:
+                want_abs = ref.flash_attention_ref(q, k, v.abs(), window=window, softcap=cap)
+                row.update(flash_bf16_errors(got, want, want_abs))
+                check(row["max_err_over_bar"] <= 1.0,
+                      f"flash bf16 {shape} window={window} softcap={cap}: {row}")
+            small[str(dtype).split(".")[-1]].append(row)
 
     B, S, H, G, hd = 1, LM_SEQ, 32, 16, 128
     q, k, v = qkv(B, S, H, G, hd, torch.bfloat16)
@@ -231,19 +344,22 @@ def flash_phase(torch, dev) -> dict:
     for label, window in (("global", 0), ("window4096", 4096)):
         run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
         plain = lambda: ref.flash_attention_ref(q, k, v, window=window, softcap=50.0)
-        want = plain().float()
-        diff = (run().float() - want).abs()
-        bar = (FLASH_BF16_NEAR0 + FLASH_BF16_RTOL * want.abs()).clamp(max=FLASH_BF16_ATOL)
-        err, worst = float(diff.max()), float((diff / bar).max())
-        check(worst <= 1.0, f"flash path shape {label}: error {worst} times its bar "
-                            f"(max abs err {err})")
+        want = plain()
+        want_abs = ref.flash_attention_ref(q, k, v.abs(), window=window, softcap=50.0)
+        row = flash_bf16_errors(run(), want, want_abs)
+        del want_abs
+        check(row["max_err_over_bar"] <= 1.0, f"flash path shape bf16 {label}: {row}")
         t_b, by = flash_bound(B, S, H, G, hd, window, 2)
+        tanh_exp_pairs = flash_tanh_exp_pairs(torch, q, k, window, 50.0)
         path[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "dtype": "bfloat16", "window": window,
-                       "softcap": 50.0, "max_abs_err": err, "max_err_over_bar": worst,
-                       "median_abs_o": float(want.abs().median()),
+                       "softcap": 50.0, **row,
+                       "median_abs_o": float(want.float().abs().median()),
                        "ms": device_ms(run, FLASH_TIMING_REPS),
                        "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
                        "bound_ms": t_b, "bound_by": by,
+                       "sfu_floor_ms": flash_sfu_floor_ms(
+                           B * H * flash_pairs(S, window) + 2 * tanh_exp_pairs, sms, clock_hz),
+                       "tanh_exp_pairs": tanh_exp_pairs,
                        "pairs": flash_pairs(S, window)}
     # the library yardstick: one torch call of the same function without the
     # softcap (no single call softcaps), beside the kernel on those inputs
@@ -256,27 +372,39 @@ def flash_phase(torch, dev) -> dict:
                        "enable_gqa=True)", "softcap": None, "window": 0,
                "library_ms": device_ms(sdpa, FLASH_TIMING_REPS),
                "kernel_ms": device_ms(nocap, FLASH_TIMING_REPS),
+               "kernel_sfu_floor_ms": flash_sfu_floor_ms(B * H * flash_pairs(S, 0), sms, clock_hz),
                "kernel_vs_library_max_abs": sdpa_err,
                "softcapped": "no single PyTorch call computes the softcapped function"}
     del q, k, v, qt, kt, vt
-    # float32 at the path shape: a tile schedule that goes wrong only at
-    # S = 8192 shows here at the reference's float32 bar
+    # float32 at the path shape (the scalar kernel): a tile schedule that
+    # goes wrong only at S = 8192 shows here at the reference's float32 bar
     path_f32 = {}
     q, k, v = qkv(B, S, H, G, hd, torch.float32)
     for label, window in (("global", 0), ("window4096", 4096)):
-        got = ops.flash_attention(q, k, v, window=window, softcap=50.0)
-        err = float((got - ref.flash_attention_ref(q, k, v, window=window, softcap=50.0))
-                    .abs().max())
+        run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
+        plain = lambda: ref.flash_attention_ref(q, k, v, window=window, softcap=50.0)
+        err = float((run() - plain()).abs().max())
         check(err <= FLASH_F32_ATOL, f"flash path shape float32 {label}: max abs err {err}")
+        t_b, by = flash_bound(B, S, H, G, hd, window, 4, FP32_OPS_PER_S)
         path_f32[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "window": window, "softcap": 50.0,
-                           "max_abs_err": err}
-    del q, k, v, got
+                           "max_abs_err": err, "ms": device_ms(run, FLASH_TIMING_REPS),
+                           "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
+                           "bound_ms": t_b, "bound_by": by}
+    del q, k, v
     torch.cuda.empty_cache()
+    lib = str(build.library_path("flash_attention.cu"))
+    log = build.library_path("flash_attention.cu").with_suffix(".log").read_text()
     return {"phase": "flash", "phase_s": time.perf_counter() - t_phase,
-            "small_f32": small, "path_f32": path_f32, "path_bf16": path, "library": library,
+            "small": small, "path_f32": path_f32, "path_bf16": path, "library": library,
             "f32_atol": FLASH_F32_ATOL,
-            "bf16_bar": f"min({FLASH_BF16_ATOL}, {FLASH_BF16_NEAR0} + {FLASH_BF16_RTOL} |o|)",
+            "bf16_bar": f"min({FLASH_BF16_ATOL}, {FLASH_BF16_NEAR0} + {FLASH_BF16_RTOL} |o| + "
+                        f"{FLASH_BF16_PROB} |o|_abs)",
             "sdpa_atol": FLASH_BF16_ATOL,
+            "sfu": {"sms": sms, "clock_max_hz": clock_hz, "per_clock_per_sm": SFU_PER_CLOCK_PER_SM,
+                    "ops_per_pair": "1 ex2; 2 more where tanhf leaves its polynomial",
+                    "tanh_poly_limit": TANH_POLY_LIMIT},
+            "ptxas_bf16_kernel": flash_kernel_ptxas(log, "wgmma"),
+            "sass_bf16_library": flash_sass_evidence(lib),
             "timing": f"device time, median of {FLASH_TIMING_REPS} calls between CUDA events"}
 
 
@@ -755,16 +883,23 @@ def smoke(torch) -> int:
     emit(flash)
 
     # ------------------------------------------------------------- autotune
-    names = ("oga_step_fused", "proj_sortscan", "proj_bisect", "flash_attention")
-    wrappers = (og_kernel.oga_step_fused, ss_kernel.proj_sortscan, pb_kernel.proj_bisect,
-                fa_kernel.flash_attention)
+    # one count per CUDA kernel; both flash kernels sit behind one wrapper,
+    # which counts each under its dtype
+    names = ("oga_step_fused", "proj_sortscan", "proj_bisect", "flash_attention_bf16",
+             "flash_attention_f32")
+    wrappers = (og_kernel.oga_step_fused, ss_kernel.proj_sortscan, pb_kernel.proj_bisect)
+    flash_counts = fa_kernel.flash_attention.kernel_launches
 
     def zero_launches():
         for w in wrappers:
             w.launches = 0
+        fa_kernel.flash_attention.launches = 0
+        for key in flash_counts:
+            flash_counts[key] = 0
 
     def launches():
-        return tuple(w.launches for w in wrappers)
+        return tuple(w.launches for w in wrappers) + (flash_counts["bf16"],
+                                                      flash_counts["float32"])
 
     zero_launches()
     t0 = time.perf_counter()
@@ -987,7 +1122,8 @@ def smoke(torch) -> int:
     del lm_params
     torch.cuda.empty_cache()
     serve_counts = launches()
-    check(serve_counts[3] > 0, "flash_attention was not launched on the serve path")
+    for name, n in zip(names[3:], serve_counts[3:]):
+        check(n > 0, f"{name} was not launched on the serve path")
 
     # ---------------------------------------------------------- kernel line
     paths = {"autotune": tune_launches, "main": counts, "serve": serve_counts}
@@ -999,8 +1135,9 @@ def smoke(torch) -> int:
         """A kernel's launches on each path; "launches" is their sum."""
         return {p: c[i] for p, c in paths.items()}
 
-    fl = flash["path_bf16"]["global"]
-    emit({"kernels": [
+    fl, fl32 = flash["path_bf16"]["global"], flash["path_f32"]["global"]
+    small = flash["small"]
+    kernels = [
         {"name": "oga_step_fused", "route": "cuda", "source": csrc + "oga_step.cu",
          "replaces": "src/repro/kernels/oga_step.py:107",
          "launches": sum(by_path(0).values()),
@@ -1025,11 +1162,12 @@ def smoke(torch) -> int:
          "ms": bisect_rows["fig2"]["ms"], "plain_ms": bisect_rows["fig2"]["plain_ms"],
          "bound_ms": bisect_rows["fig2"]["bound_ms"], "bound_by": bisect_rows["fig2"]["bound_by"],
          "library_ms": None},
-        {"name": "flash_attention", "route": "cuda", "source": csrc + "flash_attention.cu",
+        {"name": "flash_attention_bf16", "kernel": "flash_attention_wgmma_kernel",
+         "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": sum(by_path(3).values()),
          "launches_by_path": by_path(3),
-         "max_abs_err": max([r["max_abs_err"] for r in flash["small_f32"]] +
+         "max_abs_err": max([r["max_abs_err"] for r in small["bfloat16"]] +
                             [r["max_abs_err"] for r in flash["path_bf16"].values()]),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
@@ -1037,7 +1175,20 @@ def smoke(torch) -> int:
          "library_vs_kernel_without_softcap_ms": flash["library"]["kernel_ms"],
          "window4096": {k: flash["path_bf16"]["window4096"][k]
                         for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
-    ]})
+        {"name": "flash_attention_f32", "kernel": "flash_attention_kernel",
+         "route": "cuda", "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:64",
+         "launches": sum(by_path(4).values()),
+         "launches_by_path": by_path(4),
+         "max_abs_err": max([r["max_abs_err"] for r in small["float32"]] +
+                            [r["max_abs_err"] for r in flash["path_f32"].values()]),
+         "ms": fl32["ms"], "plain_ms": fl32["plain_ms"],
+         "bound_ms": fl32["bound_ms"], "bound_by": fl32["bound_by"],
+         "library_ms": None,
+         "window4096": {k: flash["path_f32"]["window4096"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+    ]
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

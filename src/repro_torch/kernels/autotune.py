@@ -64,14 +64,21 @@ MAX_BISECT_ITERS = 64
 PROJ_METHODS = ("sortscan", "bisect")
 DEFAULT_PROJ_METHOD = "sortscan"    # the exact breakpoint sweep
 KERNELS = ("oga_step", "proj")
-# Flash attention (csrc/flash_attention.cu): query rows per block, keys per
-# shared-memory tile, threads per query row (each holds hd / 4 lanes of
-# it), and the head dims the kernel is built for. A fixed choice, not
-# tuned; the C entry refuses a launch whose constants differ from these.
+# Flash attention, float32 (csrc/flash_attention.cu, the scalar kernel):
+# query rows per block, keys per shared-memory tile, threads per query row
+# (each holds hd / 4 lanes of it), and the head dims both kernels take. A
+# fixed choice, not tuned; the C entry refuses a launch whose constants
+# differ from these.
 FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 32
 FLASH_THREADS_PER_ROW = 4
 FLASH_HEAD_DIMS = (64, 80, 128)
+# The bf16 flash kernel (tensor cores, the same file): query rows per block,
+# keys per K/V tile in shared memory, and the K/V tiles in flight. Fixed
+# too; its C entry refuses others.
+FLASH_TC_BLOCK_Q = 128
+FLASH_TC_BLOCK_K = 128
+FLASH_TC_STAGES = 2
 # warm-up launches before a candidate is timed, and timed launches
 WARMUP_CALLS = 3
 TUNE_REPEATS = 10

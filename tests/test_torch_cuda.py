@@ -11,10 +11,14 @@ bisection result (the reference's bar for its bisect kernel: the bracket
 width / 2^iters); none across row blocks, where the outputs are equal bit
 for bit. bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
 |y| < 4; both solve in float32 and round once). Flash attention against
-its plain version: 2e-5 in float32 (the reference's bar; the kernel sums
-in another order); in bf16 1e-4 + 2^-6 |o| and at most 0.05 (the
-reference's bf16 bar): both compute in float32 and round once, so they
-differ by a rounding flip, one ulp <= 2^-7 |o|; the LM on the
+its plain version: 2e-5 in float32 (the scalar kernel; the reference's
+bar; the kernel sums in another order); in bf16 (the tensor-core kernel)
+min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs), elementwise, with |o|_abs the
+plain version run on |v|: the kernel rounds P once to bf16 before the PV
+product (<= 2^-9 relative per p, so <= 2^-9 |o|_abs on o; doubled), and
+both round the output once (a flip is one ulp <= 2^-7 |o|); 0.05 is the
+reference's bf16 bar (tests/test_torch_flash_numerics.py holds the
+derivation on the CPU); the LM on the
 card against the CPU in float32: 1e-3 on logits (float32 matmuls in
 another order, two layers deep, logits of size ~1-30).
 """
@@ -278,12 +282,56 @@ def test_flash_kernel_matches_plain(dev, B, S, H, G, hd, window, softcap, dtype)
     got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1 and got.dtype == dtype
+    _assert_flash_close(got, q, k, v, window, softcap)
+
+
+def _assert_flash_close(got, q, k, v, window, softcap):
+    """The kernel's output against the plain version: 2e-5 in float32; in
+    bf16 min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs) elementwise."""
     want = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
-    if dtype == torch.float32:
+    if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
-    else:
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -6)
-        assert float((got.float() - want.float()).abs().max()) <= 0.05
+        return
+    want_abs = ref.flash_attention_ref(q, k, v.abs(), window=window, softcap=softcap).float()
+    want = want.float()
+    bar = (1e-4 + 2 ** -6 * want.abs() + 2 ** -8 * want_abs).clamp(max=0.05)
+    diff = (got.float() - want).abs()
+    worst = float((diff / bar).max())
+    assert worst <= 1.0, f"max |diff| {float(diff.max())}, {worst} times its bar"
+
+
+@pytest.mark.parametrize("B,S,H,G,hd,window,softcap", [
+    (3, 1, 8, 1, 64, None, 50.0), (2, 127, 4, 2, 128, None, None),
+    (1, 128, 4, 4, 128, None, 50.0), (2, 129, 16, 2, 128, None, None),
+    (1, 300, 4, 2, 64, 16, 50.0), (2, 200, 4, 1, 128, 16, None),
+    (1, 150, 4, 2, 80, 1000, None), (2, 256, 8, 1, 128, 100, 50.0),
+    (1, 8191, 4, 2, 80, 4096, 50.0), (1, 8191, 2, 1, 80, None, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_edges(dev, B, S, H, G, hd, window, softcap, dtype):
+    """The tile edges of both kernels: S = 1, S at and around one 128-row
+    tile, a window narrower than a K tile and one wider than S, rep 1, 2
+    and 8 with B > 1, and hd 80 (run as 128 by the bf16 kernel) at a
+    ragged 8191."""
+    q, k, v = _qkv(_rng(11, S, hd, H), B, S, H, G, hd, dev, dtype)
+    before = dict(tfa.flash_attention.kernel_launches)
+    got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    name = "bf16" if dtype == torch.bfloat16 else "float32"
+    assert tfa.flash_attention.kernel_launches[name] == before[name] + 1
+    _assert_flash_close(got, q, k, v, window, softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_softcap_on_large_scores(dev, dtype):
+    """Scores far past the softcap: heads 0 and 2 get q scaled by 40, so
+    |s| scale / softcap reaches ~3 and tanh saturates; the bf16 kernel's
+    warps there take tanhf's ex2 branch, those of heads 1 and 3 its
+    polynomial alone, in one launch."""
+    q, k, v = _qkv(_rng(12), 2, 300, 4, 2, 128, dev, dtype)
+    q[:, :, ::2] *= 40.0
+    got = ops.flash_attention(q, k, v, window=100, softcap=50.0)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, q, k, v, 100, 50.0)
 
 
 def test_flash_kernel_reads_strided_views(dev):
@@ -298,6 +346,36 @@ def test_flash_kernel_reads_strided_views(dev):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     with pytest.raises(ValueError):
         ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+
+
+def test_flash_bf16_kernel_reads_strided_views(dev):
+    """The same fused-qkv views in bf16: the tensor-core kernel's tensor
+    maps read them through their byte strides."""
+    B, S, H, G, hd = 2, 200, 4, 2, 128
+    qkv = torch.randn(B, S, H + 2 * G, hd, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + G], qkv[:, :, H + G:]
+    got = ops.flash_attention(q, k, v, window=64, softcap=50.0)
+    _assert_flash_close(got, q.contiguous(), k.contiguous(), v.contiguous(), 64, 50.0)
+
+
+def test_flash_bf16_kernel_refuses_what_tma_cannot_read(dev):
+    """A bf16 view whose base sits 8 bytes off a 16-byte boundary raises
+    before any launch; the float32 kernel, which reads no tensor maps,
+    takes the same misalignment."""
+    B, S, H, G, hd = 1, 64, 2, 1, 64
+    n = B * S * H * hd
+    for dtype, off in ((torch.bfloat16, 4), (torch.float32, 2)):
+        buf = torch.randn(n + 8, device=dev).to(dtype)
+        q = buf[off:off + n].view(B, S, H, hd)
+        k, v = (torch.randn(B, S, G, hd, device=dev).to(dtype) for _ in range(2))
+        assert q.data_ptr() % 16 == 8
+        before = tfa.flash_attention.launches
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiple of 16"):
+                ops.flash_attention(q, k, v)
+            assert tfa.flash_attention.launches == before
+        else:
+            _assert_flash_close(ops.flash_attention(q, k, v), q, k, v, None, None)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-27b", "stablelm-3b"])

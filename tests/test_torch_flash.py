@@ -100,3 +100,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q, k, v.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def test_tma_rule_is_a_function_of_the_layout():
+    """What the bf16 kernel's TMA loads read, as the wrapper decides it on
+    the card: a 16-byte-aligned base and batch, seq and head strides that
+    are multiples of 16 bytes (a dim of size 1 is never stepped over)."""
+    bf = torch.bfloat16
+    shape, dense = (2, 200, 8, 128), (200 * 8 * 128, 8 * 128, 128, 1)
+    assert tfa.tma_violation(shape, dense, bf, 4096) is None
+    assert "base address" in tfa.tma_violation(shape, dense, bf, 4096 + 8)
+    # the fused-qkv views: q, k, v of one (B, S, H + 2G, hd) tensor
+    fused = (200 * 8 * 128, 8 * 128, 128, 1)
+    for first_head in (0, 4, 6):
+        assert tfa.tma_violation((2, 200, 2, 128), fused, bf, 4096 + first_head * 256) is None
+    # hd 80: 160-byte rows are legal; a 168-byte seq stride is not
+    assert tfa.tma_violation((1, 10, 3, 80), (2400, 240, 80, 1), bf, 0) is None
+    assert "seq stride" in tfa.tma_violation((1, 10, 1, 80), (840, 84, 80, 1), bf, 0)
+    assert "head stride" in tfa.tma_violation((1, 4, 2, 64), (999, 144, 68, 1), bf, 0)
+    assert tfa.tma_violation((1, 4, 1, 64), (999, 144, 68, 1), bf, 0) is None
+    assert "head dim" in tfa.tma_violation(shape, (0, 0, 1, 128), bf, 0)
+    # the tensor maps get dense strides for dims of size 1
+    assert tfa.tma_strides((1, 1, 4, 80), (7, 3, 80, 1)) == (320, 320, 80)
+    assert tfa.tma_strides(shape, dense) == dense[:3]
+
+
+def test_tma_rule_binds_only_on_the_card():
+    """A bf16 CPU view whose base is off by 8 bytes runs the plain version:
+    the rule is the tensor-core kernel's, checked only for CUDA tensors."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(14, 1, 64, 2, 1, 64))
+    buf = torch.zeros(q.numel() + 8, dtype=torch.bfloat16)
+    shifted = buf[4:4 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 == 8
+    assert torch.equal(ops.flash_attention(shifted, k, v),
+                       ref.flash_attention_ref(q, k, v))

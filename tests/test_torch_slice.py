@@ -110,7 +110,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("*.py")))
     assert len(files) > 10
     bad = []
     for path in files:
