@@ -7,14 +7,22 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each printing one JSON line:
 
-  build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh.
+  build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh;
+           ptxas's report of every kernel, and for every sortscan
+           instantiation its registers, shared memory, stack and spills and
+           its SASS count of barriers, shared- and local-memory ops and
+           shuffles (none of the first three may appear; no spill at
+           E <= 8 slots a lane).
   kernels  each CUDA kernel against its plain PyTorch version on the card
            (the projections also against the float64 oracle), at the shapes
-           the main path gives it, with CUDA-event times and bounds; the
-           fused step's bisect branch also against its sortscan method.
+           the main path gives it, with CUDA-event times, bounds and the
+           launch floor (an empty kernel on the launch's grid); the sortscan
+           kernels also at every legal row block; the fused step's bisect
+           branch also against its sortscan method.
   autotune the kernel-tuning path: kernels.autotune.tune at the main path's
            shapes, stored in a fresh temporary cache; the bisect A/B at each
-           winner's row block; and every legal row block of both sortscan
+           winner's row block (or the largest below it that the bisect
+           layout takes); and every legal row block of both sortscan
            kernels against row_block = 1, bit for bit.
   fig2     simulator.run_all at the paper's Fig. 2 config (Tab. 2), every
            average reward against the JAX reference's, the fused trajectory
@@ -45,15 +53,20 @@ Phases, each printing one JSON line:
 fig2 to grid run on the warmed cache and must make no measurement and
 miss it never. The kernel launch counters are set to 0 before the autotune
 path and read after it, again for the main path (fig2 to grid), and again
-for the serve path (lm_prefill and lm_serve). The line before the last
-lists every kernel with its launches on each path and their sum, its error
-and its times (flash attention as two kernels, bf16 and float32, behind
-one wrapper); the last line is {"ok": true, "device": {...}}. A failed
-check raises, and the exit code is then non-zero. Needs no network;
-imports nothing of JAX or of the reference package ``repro``.
+for the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
+path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
+line before the last lists every kernel with its launches on each path
+and their sum, its error and its times (flash attention as two kernels,
+bf16 and float32, behind one wrapper); the last line is {"ok": true,
+"device": {...}}, printed only after every check passed, and the exit code
+is then 0. A failed check raises and the exit code is 1; no CUDA device
+exits 2, and a directory without src/repro_torch beside the script exits
+3, with no result printed. Needs no network; imports nothing of JAX or of
+the reference package ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -112,6 +125,25 @@ PROJ_PLAIN_ATOL = 2e-6
 BISECT_ATOL = 5e-5
 CAPACITY_SLACK = 1e-4       # sum(y) <= c + this for a bisection's output
 TIMING_REPS = 25
+# SASS opcodes reported for the sortscan kernels, beside their total:
+# barriers, shared and local memory (none may appear) and the shuffles that
+# replace them
+SASS_OPS = ("BAR", "LDS", "STS", "LDL", "STL", "SHFL")
+# the largest slots per lane at which a sortscan kernel must not spill (the
+# main path's widths run E = 2 and E = 8)
+SORTSCAN_NO_SPILL_E = 8
+# sortscan kernel instantiations: (16, 2) and (32, E) for E = 2 .. 32, fused
+# and standalone
+SORTSCAN_INSTANTIATIONS = 12
+# main-path launches of each sortscan kernel by packed shape: fig2's 2000
+# slots, the slot profile's 2 x 100 and regret's 2000 at (768, 10), with the
+# grid's two single-config rows of 200; the grid's 200 steps in each of 4
+# runs at (49152, 10); fig5's 300 at (6144, 100); the regret oracle's 2000
+# projections at (768, 10)
+MAIN_LAUNCHES_BY_SHAPE = {
+    "oga_step_fused": {"768x10": 4600, "49152x10": 800, "6144x100": 300},
+    "proj_sortscan": {"768x10": 2000},
+}
 
 # bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet): the
 # flash-attention bound counts its work at the rate the function needs
@@ -278,6 +310,64 @@ def flash_kernel_ptxas(log: str, marker: str) -> list:
         elif keep and ("registers" in ln or "spill" in ln):
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas's report of every entry function in a build log: registers,
+    barriers, static shared memory, stack frame and spill bytes."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {"registers": None, "barriers": 0, "smem_bytes": 0, "stack_bytes": 0,
+                         "spill_store_bytes": 0, "spill_load_bytes": 0}
+        elif name and "bytes stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            ent = out[name]
+            ent["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            bars = re.search(r"used (\d+) barriers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            ent["barriers"] = int(bars.group(1)) if bars else 0
+            ent["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_ops_by_kernel(lib_path: str) -> dict:
+    """How many instructions of each base opcode (``SHFL`` for
+    ``SHFL.BFLY``) every function of the built library holds, and their
+    ``total``, from cuobjdump -sass. The kernels here are fully unrolled, so
+    the total is about what one warp issues."""
+    import collections
+    import subprocess
+    from repro_torch.device import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout.splitlines()
+    out, name = {}, None
+    for ln in sass:
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            out[name] = collections.Counter()
+        elif name and "*/" in ln and ";" in ln:
+            words = ln.split("*/", 1)[1].split(";")[0].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                out[name][words[0].split(".")[0]] += 1
+                out[name]["total"] += 1
+    return out
+
+
+def sortscan_layout_of(name: str):
+    """(kernel, W lanes per row, E slots per lane) of a sortscan kernel's
+    mangled name, or None for any other kernel."""
+    import re
+    hit = re.search(r"(oga_step_sortscan_kernel|proj_sortscan_kernel)ILi(\d+)ELi(\d+)EE", name)
+    return (hit.group(1), int(hit.group(2)), int(hit.group(3))) if hit else None
 
 
 def flash_sass_evidence(lib_path: str) -> dict:
@@ -644,17 +734,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout",
+              file=sys.stderr)
+        return 3
     with tempfile.TemporaryDirectory(prefix="repro-torch-autotune-") as cache_dir:
         # a fresh autotune table: no earlier run's winners decide what runs
         os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_dir
-        return smoke(torch)
+        device = smoke(torch)
+    # the last line, printed only once every phase passed and the run's
+    # temporary files are gone: exit code 0 goes with it and with nothing else
+    emit({"ok": True, "device": device})
+    return 0
 
 
-def smoke(torch) -> int:
+def smoke(torch) -> dict:
+    """Every phase; raises on the first failed check. Returns the device
+    entry of the last line."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import ogasched
     from repro_torch.device import gpu_name_and_power_limit, platform_info
-    from repro_torch.kernels import autotune, build, ops, ref
+    from repro_torch.kernels import _launch, autotune, build, ops, ref
     from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.kernels import oga_step as og_kernel
     from repro_torch.kernels import proj_bisect as pb_kernel
@@ -687,9 +787,31 @@ def smoke(torch) -> int:
     for src in build.SOURCES:
         log = build.library_path(src).with_suffix(".log").read_text()
         ptxas[src] = [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "Compiling entry" in ln]
+                      if "registers" in ln or "Compiling entry" in ln or "stack frame" in ln]
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas})
+    # the sortscan kernels work in registers and shuffles: no shared
+    # memory, no barrier, and no spill at the widths the main path runs
+    oga_lib = build.library_path("oga_step.cu")
+    oga_ptxas = ptxas_by_kernel(oga_lib.with_suffix(".log").read_text())
+    oga_sass = sass_ops_by_kernel(str(oga_lib))
+    sortscan_build = {}
+    for name, rep in oga_ptxas.items():
+        layout = sortscan_layout_of(name)
+        if layout is None:
+            continue
+        kern, W, E = layout
+        ent = sortscan_build[f"{kern}<{W},{E}>"] = {
+            **rep, "sass": {op: oga_sass[name][op] for op in SASS_OPS + ("total",)}}
+        check(rep["smem_bytes"] == 0 and rep["barriers"] == 0
+              and ent["sass"]["BAR"] == ent["sass"]["LDS"] == ent["sass"]["STS"] == 0,
+              f"{kern}<{W},{E}> uses shared memory or a barrier: {ent}")
+        if E <= SORTSCAN_NO_SPILL_E:
+            check(rep["stack_bytes"] == rep["spill_store_bytes"] == 0
+                  and ent["sass"]["LDL"] == ent["sass"]["STL"] == 0,
+                  f"{kern}<{W},{E}> spills: {ent}")
+    check(len(sortscan_build) == SORTSCAN_INSTANTIATIONS,
+          f"sortscan instantiations built: {sorted(sortscan_build)}")
 
     # -------------------------------------------------------------- kernels
     seeds = np.random.SeedSequence(20261017).spawn(8)
@@ -779,6 +901,21 @@ def smoke(torch) -> int:
         check(over <= CAPACITY_SLACK, f"a bisection overshoots the capacity by {over}")
         return over
 
+    empty = _launch.c_entry("oga_step.cu", "repro_empty_launch",
+                            (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+
+    def floor_ms(N, L, rb, method="sortscan"):
+        """Device time of an empty kernel on the grid of a launch of N rows
+        of width L, rb rows per block: the floor under that launch."""
+        blocks, threads = -(-N // rb), autotune.block_threads(rb, L, method)
+        return time_ms(lambda: _launch.call(empty, dev, blocks, threads))
+
+    def by_row_block(fn, N, L):
+        """ms and launch floor at every row block legal for sortscan."""
+        rbs = [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L)]
+        return ({rb: time_ms(lambda: fn(rb)) for rb in rbs},
+                {rb: floor_ms(N, L, rb) for rb in rbs})
+
     shapes = {"fig2": (768, 10), "fig5": (6144, 100), "grid64": (49152, 10)}
     oga_rows = {}
     for i, (label, (N, L)) in enumerate(shapes.items()):
@@ -796,7 +933,10 @@ def smoke(torch) -> int:
             "call_ms": call_ms(lambda: ops.oga_step_fused(*args)),
             "plain_call_ms": call_ms(lambda: ref.oga_step_ref(*args)),
             "bound_ms": t_b, "bound_by": by, "bytes": oga_bytes(N, L),
+            "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
         }
+        oga_rows[label]["ms_by_row_block"], oga_rows[label]["launch_floor_ms_by_row_block"] = \
+            by_row_block(lambda rb: og_kernel.oga_step_fused(*args, row_block=rb), N, L)
     bisect_pin = autotune.KernelConfig(autotune.DEFAULT_ROW_BLOCK, "bisect",
                                        autotune.DEFAULT_BISECT_ITERS)
     oga_bisect_rows = {}
@@ -820,6 +960,7 @@ def smoke(torch) -> int:
             "plain_ms": time_ms(lambda: ref.oga_step_ref(*args, proj="bisect",
                                                          iters=bisect_pin.iters)),
             "bound_ms": t_b, "bound_by": by,
+            "launch_floor_ms": floor_ms(N, L, bisect_pin.row_block, "bisect"),
         }
     bisect_rows = {}
     for i, (label, (N, L)) in enumerate({"fig2": (768, 10), "fig5": (6144, 100)}.items()):
@@ -845,6 +986,7 @@ def smoke(torch) -> int:
             "call_ms": call_ms(lambda: ops.proj_bisect(*args)),
             "plain_call_ms": call_ms(lambda: ref.proj_rows_bisect(*args)),
             "bound_ms": t_b, "bound_by": by, "bytes": proj_bytes(N, L),
+            "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK, "bisect"),
         }
     proj_rows = {}
     # the shapes the paths run it at: the regret oracle's (768, 10), and
@@ -870,15 +1012,20 @@ def smoke(torch) -> int:
             "call_ms": call_ms(lambda: ops.proj_sortscan(*args)),
             "plain_call_ms": call_ms(lambda: ref.proj_rows_sorted(*args)),
             "bound_ms": t_b, "bound_by": by, "bytes": proj_bytes(N, L),
+            "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
         }
+        proj_rows[label]["ms_by_row_block"], proj_rows[label]["launch_floor_ms_by_row_block"] = \
+            by_row_block(lambda rb: ss_kernel.proj_sortscan(*args, row_block=rb), N, L)
     emit({"phase": "kernels", "row_block": autotune.DEFAULT_ROW_BLOCK,
           "oga_step_fused": oga_rows, "oga_step_fused_bisect": oga_bisect_rows,
           "proj_sortscan": proj_rows, "proj_bisect": bisect_rows,
+          "sortscan_kernels_build": sortscan_build,
           "oga_step_atol": OGA_STEP_ATOL, "proj_atol": PROJ_ATOL,
           "proj_plain_atol": PROJ_PLAIN_ATOL, "bisect_atol": BISECT_ATOL,
           "timing": f"ms: device time, median of {TIMING_REPS} back-to-back calls "
                     f"between CUDA events behind a GPU spin; call_ms: host time of "
-                    f"one call to completion, median of {TIMING_REPS}"})
+                    f"one call to completion, median of {TIMING_REPS}; launch_floor_ms: "
+                    f"an empty kernel on the launch's grid, timed the same way"})
     flash = flash_phase(torch, dev)
     emit(flash)
 
@@ -893,6 +1040,8 @@ def smoke(torch) -> int:
     def zero_launches():
         for w in wrappers:
             w.launches = 0
+        for w in wrappers[:2]:
+            w.launches_by_shape.clear()
         fa_kernel.flash_attention.launches = 0
         for key in flash_counts:
             flash_counts[key] = 0
@@ -908,13 +1057,15 @@ def smoke(torch) -> int:
     for label, (N, L) in shapes.items():
         win, measured = autotune.tune("oga_step", N, L)
         check(autotune.lookup("oga_step", N, L) == win, f"oga_step {label}: winner not stored")
-        ab_cands = [autotune.KernelConfig(win.row_block, "bisect", it)
-                    for it in autotune.BISECT_ITERS]
+        # the bisect A/B at the winner's row block, or the largest one the
+        # bisect layout (P threads a row) takes below it
+        ab_rb = autotune.fit_row_block(win.row_block, L, "bisect")
+        ab_cands = [autotune.KernelConfig(ab_rb, "bisect", it) for it in autotune.BISECT_ITERS]
         _, ab = autotune.tune("oga_step", N, L, cands=ab_cands, store=False)
         tuned[label] = {
             "N": N, "L": L, "us": measured, "winner": win.label,
             "speedup_vs_default": measured[default_label] / measured[win.label],
-            "bisect_us": ab,
+            "bisect_row_block": ab_rb, "bisect_us": ab,
             "bisect_over_sortscan": {k: v / measured[win.label] for k, v in ab.items()},
         }
     tuned_proj = {}
@@ -1011,7 +1162,7 @@ def smoke(torch) -> int:
         if t > 0:
             dev_us += t
             n_dev += ev.count
-            if "oga_step_kernel" in ev.key:
+            if "oga_step_sortscan_kernel" in ev.key:
                 kernel_us += t
     slot_profile = {
         "slots": 100, "wall_us_per_slot": window_us / 100,
@@ -1112,6 +1263,10 @@ def smoke(torch) -> int:
     counts = launches()
     for name, n in zip(names[:2], counts):
         check(n > 0, f"{name} was not launched on the main path")
+    main_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
+                     for name, w in zip(names[:2], wrappers[:2])}
+    check(main_by_shape == MAIN_LAUNCHES_BY_SHAPE,
+          f"main-path launches by shape: {main_by_shape}")
 
     # ----------------------------------------------------------- serve path
     del batch, spec_g, arr_g, out_g, spec2, arr2, sub
@@ -1128,7 +1283,8 @@ def smoke(torch) -> int:
     # ---------------------------------------------------------- kernel line
     paths = {"autotune": tune_launches, "main": counts, "serve": serve_counts}
     emit({"phase": "paths", "autotune_cache": stats,
-          "launches": {p: dict(zip(names, c)) for p, c in paths.items()}})
+          "launches": {p: dict(zip(names, c)) for p, c in paths.items()},
+          "main_launches_by_shape": main_by_shape})
     csrc = "src/repro_torch/kernels/csrc/"
 
     def by_path(i):
@@ -1142,6 +1298,7 @@ def smoke(torch) -> int:
          "replaces": "src/repro/kernels/oga_step.py:107",
          "launches": sum(by_path(0).values()),
          "launches_by_path": by_path(0),
+         "main_launches_by_shape": main_by_shape["oga_step_fused"],
          "max_abs_err": max(r["max_abs_err"] for r in oga_rows.values()),
          "ms": oga_rows["fig2"]["ms"], "plain_ms": oga_rows["fig2"]["plain_ms"],
          "bound_ms": oga_rows["fig2"]["bound_ms"], "bound_by": oga_rows["fig2"]["bound_by"],
@@ -1150,6 +1307,7 @@ def smoke(torch) -> int:
          "replaces": "src/repro/kernels/sortscan.py:171",
          "launches": sum(by_path(1).values()),
          "launches_by_path": by_path(1),
+         "main_launches_by_shape": main_by_shape["proj_sortscan"],
          "max_abs_err": max(r["max_abs_err"] for r in proj_rows.values()),
          "ms": proj_rows["fig2"]["ms"], "plain_ms": proj_rows["fig2"]["plain_ms"],
          "bound_ms": proj_rows["fig2"]["bound_ms"], "bound_by": proj_rows["fig2"]["bound_by"],
@@ -1189,9 +1347,8 @@ def smoke(torch) -> int:
                         for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
 
 
 if __name__ == "__main__":

@@ -24,15 +24,16 @@ def check_operands(names, tensors, shapes, dtype=torch.float32) -> None:
             raise ValueError(f"{name} is not contiguous")
 
 
-def check_row_block(row_block: int, L: int) -> int:
+def check_row_block(row_block: int, L: int, method: str) -> int:
     """``row_block`` if a block of that many rows of width ``L`` launches
-    (``autotune.legal_row_block``); raises otherwise."""
-    if not autotune.legal_row_block(row_block, L):
+    with ``method`` (``autotune.legal_row_block``); raises otherwise."""
+    if not autotune.legal_row_block(row_block, L, method):
+        limit = (autotune.SORTSCAN_MAX_THREADS if method == "sortscan"
+                 else autotune.MAX_THREADS)
         raise ValueError(
-            f"row_block={row_block} does not launch at L={L}: rows per block "
-            f"must be a power of two with row_block * {autotune.slots_for(L)} "
-            f"<= {autotune.MAX_THREADS} threads and its shared memory within "
-            f"{autotune.SMEM_BUDGET} bytes"
+            f"row_block={row_block} does not launch at L={L} with {method}: rows "
+            f"per block must be a power of two in {autotune.ROW_BLOCKS} and a block "
+            f"of them at most {limit} threads"
         )
     return row_block
 
@@ -74,10 +75,11 @@ def call(fn, device: torch.device, *args) -> None:
 
 
 def launch(source: str, symbol: str, operands, out: torch.Tensor, L: int,
-           row_block: int, *extra: int) -> None:
+           row_block: int, *extra: int, method: str) -> None:
     """Launch ``symbol`` over the rows of ``out``, ``row_block`` rows per
-    block, on PyTorch's current stream; the C entry takes (n, L, threads,
-    row_block, *extra). Raises if CUDA refuses the launch."""
-    ints = (out.shape[0], L, autotune.slots_for(L), row_block, *extra)
+    block in ``method``'s layout, on PyTorch's current stream; the C entry
+    takes (n, L, threads of a row, row_block, *extra). Raises if CUDA
+    refuses the launch."""
+    ints = (out.shape[0], L, autotune.row_threads(L, method), row_block, *extra)
     fn = _entry(source, symbol, len(operands) + 1, len(ints))
     call(fn, out.device, *(t.data_ptr() for t in operands), out.data_ptr(), *ints)

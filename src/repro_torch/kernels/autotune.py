@@ -5,14 +5,21 @@ The one home of the integers that shape a kernel launch (the
 ``hardcoded-tiling`` lint rule allows them only in a module at this path).
 Counterpart of ``repro.kernels.autotune``, for Hopper.
 
-Layout. A row of L lanes is projected by P = ``slots_for(L)`` threads that
-hold its 2L breakpoints in P power-of-two slots of shared memory, one slot
-per thread: the next power of two at or above 2L, and never below one warp
-(the reductions work warp by warp). A thread block holds ``row_block``
-rows, i.e. ``row_block * P`` threads, and the grid ceil(N / row_block)
-blocks. Every row synchronises on its own (its warp at P = 32, a named
-barrier of P threads above), so a row's arithmetic, and hence its bits,
-do not depend on ``row_block``.
+Layout. A row of L lanes has P = ``slots_for(L)`` breakpoint slots: the
+next power of two at or above 2L, and never below one warp. The two
+projection methods lay a row out differently:
+
+* sortscan (``csrc/sortscan.cuh``): a row is ``lanes_per_row(L)`` lanes of
+  one warp, each holding ``slots_per_lane(L)`` slots in registers; at
+  L <= 16 that is half a warp, so ``rows_per_warp(L)`` = 2. A block holds
+  ``row_block`` rows in whole warps and uses no shared memory.
+* bisect (``csrc/bisect.cuh``): a row is P threads, one lane each, with one
+  float of shared memory per warp; a block holds ``row_block * P`` threads.
+
+``legal_row_block(row_block, L, method)`` is the launch test of each. The
+grid is ceil(N / row_block) blocks. Every row reduces and synchronises on
+its own, so a row's arithmetic, and hence its bits, do not depend on
+``row_block``.
 
 Contract, in dispatch order:
 
@@ -50,9 +57,12 @@ from repro_torch.kernels import build
 # Launch constants — the one place integer tile shapes may be spelled out.
 # --------------------------------------------------------------------------
 
-WARP = 32                 # threads per warp: the fewest threads of a row
+WARP = 32                 # threads per warp
 MAX_THREADS = 1024        # threads a Hopper block may hold
 MAX_L = MAX_THREADS // 2  # widest row: 2L breakpoint slots fit in one block
+NARROW_L = 16             # sortscan rows of at most this many lanes: two per warp
+# threads of a sortscan block, so ptxas may give each up to 128 registers
+SORTSCAN_MAX_THREADS = 512
 # dynamic shared memory a block may take without the opt-in attribute
 SMEM_BUDGET = 48 * 1024
 # rows per block: powers of two up to a block of one-warp rows
@@ -98,27 +108,82 @@ def next_pow2(n: int) -> int:
 
 
 def slots_for(L: int) -> int:
-    """Breakpoint slots (= threads) of one row of ``L`` lanes: 32 at the
-    Fig. 2 width L = 10, 256 at L = 100."""
+    """Breakpoint slots of one row of ``L`` lanes: 32 at the Fig. 2 width
+    L = 10, 256 at L = 100 (the threads of a bisect row)."""
     if not 1 <= L <= MAX_L:
         raise ValueError(f"row width L={L} outside the kernels' range 1..{MAX_L}")
     return max(WARP, next_pow2(2 * L))
 
 
-def water_level_smem_bytes(p: int) -> int:
-    """Shared memory of one row of ``p`` slots: breakpoints and deltas (one
-    double each per slot) and one double per warp. The same formula as
-    ``water_level_smem_bytes`` in ``csrc/sortscan.cuh``."""
-    return (2 * p + WARP) * 8
+def rows_per_warp(L: int) -> int:
+    """Sortscan rows one warp holds: 2 at L <= NARROW_L, else 1."""
+    slots_for(L)
+    return 2 if L <= NARROW_L else 1
 
 
-def legal_row_block(row_block: int, L: int) -> bool:
-    """Whether a block of ``row_block`` rows of width ``L`` launches: a
-    power of two, at most MAX_THREADS threads, its shared memory within
-    SMEM_BUDGET."""
+def lanes_per_row(L: int) -> int:
+    """Warp lanes that hold one sortscan row (W in ``csrc/sortscan.cuh``)."""
+    return WARP // rows_per_warp(L)
+
+
+def slots_per_lane(L: int) -> int:
+    """Breakpoint slots each lane of a sortscan row holds in registers (E):
+    2 at L <= 32, P / 32 above (8 at L = 100)."""
+    return slots_for(L) // lanes_per_row(L)
+
+
+def _check_method(method: str) -> None:
+    if method not in PROJ_METHODS:
+        raise ValueError(f"method must be in {PROJ_METHODS}: {method!r}")
+
+
+@functools.cache
+def row_threads(L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
+    """Threads of one row, the ``threads`` the C entries take: the row's
+    warp lanes for sortscan, its P slots for bisect."""
+    _check_method(method)
+    return lanes_per_row(L) if method == "sortscan" else slots_for(L)
+
+
+def block_threads(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
+    """Threads of a block of ``row_block`` rows: whole warps for sortscan (a
+    lone row of 16 lanes leaves half its warp idle), row_block * P for
+    bisect."""
+    t = row_block * row_threads(L, method)
+    return -(-t // WARP) * WARP if method == "sortscan" else t
+
+
+def bisect_smem_bytes(p: int) -> int:
+    """Shared memory of one bisect row of ``p`` threads: one float per warp.
+    The same formula as ``bisect_smem_bytes`` in ``csrc/bisect.cuh``; the
+    sortscan kernels use none."""
+    return (p // WARP) * 4
+
+
+@functools.cache
+def legal_row_block(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> bool:
+    """Whether a block of ``row_block`` rows of width ``L`` launches with
+    ``method``: a power of two in ROW_BLOCKS; sortscan: at most
+    SORTSCAN_MAX_THREADS threads; bisect: at most MAX_THREADS threads and
+    its shared memory within SMEM_BUDGET. ``legal_sortscan_launch`` and
+    ``legal_bisect_launch`` in ``csrc/`` are the same tests. Cached, as is
+    ``row_threads``: every kernel launch asks both."""
+    _check_method(method)
+    if row_block not in ROW_BLOCKS:
+        return False
+    if method == "sortscan":
+        return block_threads(row_block, L, method) <= SORTSCAN_MAX_THREADS
     p = slots_for(L)
-    return (row_block in ROW_BLOCKS and row_block * p <= MAX_THREADS
-            and row_block * water_level_smem_bytes(p) <= SMEM_BUDGET)
+    return (row_block * p <= MAX_THREADS
+            and row_block * bisect_smem_bytes(p) <= SMEM_BUDGET)
+
+
+def fit_row_block(row_block: int, L: int, method: str) -> int:
+    """The largest row block at most ``row_block`` that ``method`` takes at
+    width ``L``: a row block tuned for one method, run by the other. Every
+    row block legal for bisect is legal for sortscan; not the reverse."""
+    return max(rb for rb in ROW_BLOCKS
+               if rb <= row_block and legal_row_block(rb, L, method))
 
 
 class KernelConfig(NamedTuple):
@@ -188,8 +253,8 @@ def candidates(
     l: int,
     methods: Sequence[str] = (DEFAULT_PROJ_METHOD,),
 ) -> list[KernelConfig]:
-    """Legal tilings for a packed (n rows, l lanes) problem: every legal
-    row block up to the row bucket (more rows per block than the bucket
+    """Legal tilings for a packed (n rows, l lanes) problem: every row block
+    legal for the method up to the row bucket (more rows per block than the bucket
     holds only adds idle rows); the bisect method enumerates its iteration
     count too. Never empty: ``row_block = 1`` is legal at every width."""
     if kernel not in KERNELS:
@@ -197,10 +262,9 @@ def candidates(
     nb, _ = shape_bucket(n, l)
     out: list[KernelConfig] = []
     for method in methods:
-        if method not in PROJ_METHODS:
-            raise ValueError(f"method must be in {PROJ_METHODS}: {method!r}")
+        _check_method(method)
         for rb in ROW_BLOCKS:
-            if rb > nb or not legal_row_block(rb, l):
+            if rb > nb or not legal_row_block(rb, l, method):
                 continue
             if method == "sortscan":
                 out.append(KernelConfig(rb, "sortscan", 0))
@@ -242,9 +306,9 @@ def _valid_entry(ent: object, l: int) -> Optional[KernelConfig]:
     if not isinstance(ent, dict):
         return None
     rb, method, iters = ent.get("row_block"), ent.get("method"), ent.get("iters")
-    if type(rb) is not int or not legal_row_block(rb, l):
-        return None
     if method not in PROJ_METHODS:
+        return None
+    if type(rb) is not int or not legal_row_block(rb, l, method):
         return None
     if type(iters) is not int or not 0 <= iters <= MAX_BISECT_ITERS:
         return None

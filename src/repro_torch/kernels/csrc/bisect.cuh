@@ -3,8 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/proj_bisect.py (_water_level,
 // _kernel, proj_bisect) and is the method="bisect" branch of the fused OGA
 // step (src/repro/kernels/oga_step.py _kernel). It computes what
-// _water_level computes, for the P threads of one row (RowGroup, as in
-// sortscan.cuh), thread l < L holding lane l:
+// _water_level computes, for the P = slots_for(L) threads of one row
+// (RowGroup below), thread l < L holding lane l:
 //
 //   box = clip(z, 0, a) m, need = sum box > c;
 //   lo = max((sum box - c) / max(sum m, 1), 0): g is 1-Lipschitz per active
@@ -24,9 +24,122 @@
 // row reductions of L lanes are far below the float32 rate.
 #pragma once
 
+#include <type_traits>
+
 #include "sortscan.cuh"
 
 namespace repro_torch {
+
+// How the P threads of one bisect row synchronise, chosen per launch:
+//   kSyncWarp   P = 32: the row is one warp; __syncwarp orders its shared
+//               memory (no block barrier at all).
+//   kSyncBlock  one row per block: __syncthreads (barrier 0).
+//   kSyncNamed  several rows of P > 32 threads: the row's warps meet at
+//               named barrier `bar` (the row's index in its block, at most
+//               15 since P >= 64 and row_block * P <= 1024) with P threads.
+// A barrier id held in a register makes ptxas reserve all 16 named
+// barriers of the block; one-warp blocks built that way ran 4x slower on an
+// H100 (PERF.md), so only the launches that need a barrier per row get one.
+constexpr int kSyncWarp = 0;
+constexpr int kSyncBlock = 1;
+constexpr int kSyncNamed = 2;
+
+template <int kSync>
+struct RowGroup {
+  int p;    // threads of the row
+  int i;    // this thread's index in the row
+  int bar;  // the row's index in its block
+
+  __device__ __forceinline__ void sync() const {
+    if constexpr (kSync == kSyncWarp) {
+      __syncwarp();
+    } else if constexpr (kSync == kSyncBlock) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(p) : "memory");
+    }
+  }
+};
+
+// Butterfly reductions over a warp: every lane ends with the same bits.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+// Row-wide sum (or max): every thread of the row gets the same result.
+// `red` holds one float per warp of the row.
+template <bool kMax, typename Row>
+__device__ float row_reduce(float v, float* red, const Row& row) {
+  const float ident = kMax ? static_cast<float>(kNeg) : 0.0f;
+  v = kMax ? warp_max(v) : warp_sum(v);
+  const int nw = row.p / kWarp;
+  if (nw == 1) return v;
+  const int lane = row.i & (kWarp - 1);
+  row.sync();  // a previous reduction may still be reading red
+  if (lane == 0) red[row.i / kWarp] = v;
+  row.sync();
+  const float t = lane < nw ? red[lane] : ident;
+  return kMax ? warp_max(t) : warp_sum(t);
+}
+
+// Shared memory of one row of `p` threads: one float per warp (a one-warp
+// row reduces by shuffles alone and never touches it). A launch takes
+// row_block times this.
+__host__ __device__ constexpr size_t bisect_smem_bytes(int p) {
+  return static_cast<size_t>(p / kWarp) * sizeof(float);
+}
+
+// Launch layout of a bisect kernel: row_block rows of p = slots_for(L)
+// threads per block (a power of two, at most 1024 threads, the rows'
+// shared memory within the 48 KB a block gets without the opt-in
+// attribute). kernels/autotune.py legal_row_block(method="bisect") is the
+// same test.
+constexpr size_t kSmemBudget = 48 * 1024;
+
+inline bool legal_bisect_launch(int n, int L, int p, int row_block) {
+  return n > 0 && L >= 1 && L <= kMaxL && p == slots_for(L) && row_block >= 1 &&
+         (row_block & (row_block - 1)) == 0 && row_block <= kMaxThreads / p &&
+         row_block * bisect_smem_bytes(p) <= kSmemBudget;
+}
+
+// Calls f(std::integral_constant<int, kSync>{}) with the sync mode of a
+// launch of row_block rows of p threads, so each entry launches the kernel
+// instantiated for it.
+template <typename F>
+void with_sync_mode(int p, int row_block, F&& f) {
+  if (p == kWarp) {
+    f(std::integral_constant<int, kSyncWarp>{});
+  } else if (row_block == 1) {
+    f(std::integral_constant<int, kSyncBlock>{});
+  } else {
+    f(std::integral_constant<int, kSyncNamed>{});
+  }
+}
+
+// This thread's row: its group within the block and the row's index in the
+// packed (N, L) layout. Rows of the block are consecutive.
+template <int kSync>
+__device__ __forceinline__ RowGroup<kSync> row_group(int p) {
+  const int r = threadIdx.x / p;
+  return RowGroup<kSync>{p, static_cast<int>(threadIdx.x) - r * p, r};
+}
+
+template <typename Row>
+__device__ __forceinline__ long long row_index(const Row& g) {
+  return static_cast<long long>(blockIdx.x) * (blockDim.x / g.p) + g.bar;
+}
+
+// The row's own slice of a bisect launch's dynamic shared memory.
+template <typename Row>
+__device__ __forceinline__ float* bisect_row_smem(void* smem, const Row& g) {
+  return static_cast<float*>(smem) + g.bar * (g.p / kWarp);
+}
 
 // g(tau) = sum_l clip(z_l - tau, 0, a_l) m_l over the row.
 template <typename Row>
@@ -63,21 +176,6 @@ __device__ float bisect_water_level(float z, float a, float m, bool has_lane, fl
   const float step = __fdiv_rn(__fmul_rn(__fsub_rn(glo, c), __fsub_rn(hi, lo)),
                                fmaxf(__fsub_rn(glo, ghi), 1e-30f));
   return fminf(fmaxf(__fadd_rn(lo, step), lo), hi);
-}
-
-// Shared memory of one row of `p` threads: one float per warp (a one-warp
-// row reduces by shuffles alone and never touches it). A bisect launch
-// takes row_block times this; its legality is the shared legal_launch of
-// sortscan.cuh, whose thread limit binds before either method's shared
-// memory does.
-__host__ __device__ constexpr size_t bisect_smem_bytes(int p) {
-  return static_cast<size_t>(p / kWarp) * sizeof(float);
-}
-
-// The row's own slice of a bisect launch's dynamic shared memory.
-template <typename Row>
-__device__ __forceinline__ float* bisect_row_smem(void* smem, const Row& g) {
-  return static_cast<float*>(smem) + g.bar * (g.p / kWarp);
 }
 
 // The projected lane: the box clip where the capacity does not bind.

@@ -6,9 +6,9 @@
 // secant finish of bisect.cuh. Operands are float32 or bf16 (z, a, mask, c
 // and the output of one type); the water level is solved in float32
 // either way, and a bf16 output is rounded to nearest even once, at the
-// store. Layout as in oga_step.cu:
-// row_block rows of P = slots_for(L) threads per block, each row
-// synchronising on its own.
+// store. Layout as in oga_step.cu's bisect kernel: row_block rows of
+// P = slots_for(L) threads per block, each row synchronising on its own
+// (bisect.cuh).
 //
 // Bound on the H100: bytes, 4 N (4L + 1): 0.038 us at (768, 10) and
 // 2.94 us at (6144, 100) at 3.35 TB/s. Per row (iters + 4) reductions of
@@ -52,7 +52,7 @@ __global__ void proj_bisect_kernel(const T* __restrict__ z,
 template <typename T>
 int launch_proj_bisect(const T* z, const T* a, const T* mask, const T* c, T* out, int n, int L,
                        int threads, int row_block, int iters, void* stream) {
-  if (!legal_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
+  if (!legal_bisect_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   with_sync_mode(threads, row_block, [&](auto sync) {

@@ -17,6 +17,8 @@ tensors it computes the plain version ``ref.oga_step_ref``.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _launch, autotune, ref
@@ -51,7 +53,8 @@ def oga_step_fused(y, a, mask, x, kstar, scal, *, method=None, row_block=None,
     """y(t+1) (N, L) from y, a, mask, x, kstar (N, L) and scal (N, NUM_SCAL).
 
     CUDA tensors: one launch of the CUDA kernel, ``row_block`` rows per
-    block, counted in ``oga_step_fused.launches``. CPU tensors:
+    block, counted in ``oga_step_fused.launches`` and, by (N, L), in
+    ``oga_step_fused.launches_by_shape``. CPU tensors:
     ``ref.oga_step_ref`` with the same projection method. Raises for an
     unknown method and for any device, dtype, shape, layout or tiling the
     kernel does not take; there is no fallback from CUDA to the plain
@@ -71,14 +74,16 @@ def oga_step_fused(y, a, mask, x, kstar, scal, *, method=None, row_block=None,
         ("y", "a", "mask", "x", "kstar", "scal"), (y, a, mask, x, kstar, scal),
         [(N, L)] * 5 + [(N, NUM_SCAL)],
     )
-    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L)
+    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L, meth)
     out = torch.empty_like(y)
     if N == 0:
         return out
     _launch.launch("oga_step.cu", "repro_oga_step", (y, a, mask, x, kstar, scal), out,
-                   L, rb, autotune.PROJ_METHODS.index(meth), it)
+                   L, rb, autotune.PROJ_METHODS.index(meth), it, method=meth)
     oga_step_fused.launches += 1
+    oga_step_fused.launches_by_shape[(N, L)] += 1
     return out
 
 
 oga_step_fused.launches = 0
+oga_step_fused.launches_by_shape = collections.Counter()

@@ -44,11 +44,12 @@ def proj_bisect(z, a, mask, c, *, row_block=None, iters=None) -> torch.Tensor:
     N, L = z.shape
     _launch.check_operands(("z", "a", "mask", "c"), (z, a, mask, c),
                            [(N, L), (N, L), (N, L), (N,)], dtype=z.dtype)
-    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L)
+    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L, "bisect")
     out = torch.empty_like(z)
     if N == 0:
         return out
-    _launch.launch("proj_bisect.cu", _SYMBOLS[z.dtype], (z, a, mask, c), out, L, rb, it)
+    _launch.launch("proj_bisect.cu", _SYMBOLS[z.dtype], (z, a, mask, c), out, L, rb, it,
+                   method="bisect")
     proj_bisect.launches += 1
     return out
 

@@ -9,6 +9,8 @@ it launches the kernel, on CPU tensors it computes the plain version
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import _launch, autotune, ref
@@ -20,7 +22,8 @@ def proj_sortscan(z, a, mask, c, *, row_block=None) -> torch.Tensor:
 
     CUDA tensors: one launch of the CUDA kernel, ``row_block`` rows per
     block (``autotune.DEFAULT_ROW_BLOCK`` when None), counted in
-    ``proj_sortscan.launches``. CPU tensors: ``ref.proj_rows_sorted``.
+    ``proj_sortscan.launches`` and, by (N, L), in
+    ``proj_sortscan.launches_by_shape``. CPU tensors: ``ref.proj_rows_sorted``.
     Raises for anything the kernel does not take.
     """
     if z.device.type == "cpu":
@@ -30,13 +33,16 @@ def proj_sortscan(z, a, mask, c, *, row_block=None) -> torch.Tensor:
     N, L = z.shape
     _launch.check_operands(("z", "a", "mask", "c"), (z, a, mask, c),
                            [(N, L), (N, L), (N, L), (N,)])
-    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L)
+    rb = _launch.check_row_block(row_block or autotune.DEFAULT_ROW_BLOCK, L, "sortscan")
     out = torch.empty_like(z)
     if N == 0:
         return out
-    _launch.launch("oga_step.cu", "repro_proj_sortscan", (z, a, mask, c), out, L, rb)
+    _launch.launch("oga_step.cu", "repro_proj_sortscan", (z, a, mask, c), out, L, rb,
+                   method="sortscan")
     proj_sortscan.launches += 1
+    proj_sortscan.launches_by_shape[(N, L)] += 1
     return out
 
 
 proj_sortscan.launches = 0
+proj_sortscan.launches_by_shape = collections.Counter()

@@ -4,10 +4,11 @@ The contract of tests/test_autotune.py, for the port:
 
 * ``tune`` is deterministic given a fixed measurement table (ties go to
   the earlier candidate), and ``store=False`` publishes nothing;
-* the candidates are legal on Hopper: a block of row_block rows of
-  P = slots_for(L) threads holds at most 1024 threads, its shared memory
-  stays within the 48 KB a block gets without the opt-in, and row_block is
-  no larger than the row bucket;
+* the candidates are legal on Hopper in their method's layout: a sortscan
+  block of row_block rows in whole warps holds at most 512 threads and no
+  shared memory; a bisect block of row_block rows of P = slots_for(L)
+  threads holds at most 1024, its shared memory within the 48 KB a block
+  gets without the opt-in; and row_block is no larger than the row bucket;
 * a torn, damaged, foreign or stale table is a miss, never a crash;
 * ``resolve`` never measures, and dispatch on CPU tensors never calls it;
 * winners publish through ``ckpt.atomic_write_json``, which leaves either
@@ -91,29 +92,62 @@ def test_default_config_is_the_untuned_layout():
 @pytest.mark.parametrize("n", [1, 5, 64, 768, 49152])
 @pytest.mark.parametrize("L", [1, 10, 16, 17, 33, 100, 129, 512])
 def test_candidates_are_legal_on_hopper(n, L):
-    cands = autotune.candidates("oga_step", n, L, methods=autotune.PROJ_METHODS)
-    assert cands and cands[0].row_block == 1
-    p = autotune.slots_for(L)
+    """Each method's candidates launch in its own layout: sortscan rows in
+    whole warps (lanes_per_row lanes a row) of at most SORTSCAN_MAX_THREADS
+    and no shared memory; bisect rows of P threads, at most MAX_THREADS a
+    block and one float of shared memory per warp."""
     nb, pb = autotune.shape_bucket(n, L)
-    assert pb == p
-    for c in cands:
-        assert c.row_block * p <= autotune.MAX_THREADS
-        assert c.row_block * autotune.water_level_smem_bytes(p) <= autotune.SMEM_BUDGET
-        assert c.row_block <= nb
-        assert c.row_block & (c.row_block - 1) == 0
-    # every legal power of two up to the bucket is offered
-    legal = [rb for rb in autotune.ROW_BLOCKS
-             if rb <= nb and rb * p <= autotune.MAX_THREADS]
-    assert sorted({c.row_block for c in cands}) == legal
+    assert pb == autotune.slots_for(L)
+    for method, limit in (("sortscan", autotune.SORTSCAN_MAX_THREADS),
+                          ("bisect", autotune.MAX_THREADS)):
+        cands = autotune.candidates("oga_step", n, L, methods=(method,))
+        assert cands and cands[0].row_block == 1
+        for c in cands:
+            threads = autotune.block_threads(c.row_block, L, method)
+            assert threads % autotune.WARP == 0 and threads <= limit
+            if method == "sortscan":
+                assert threads == -(-c.row_block // autotune.rows_per_warp(L)) * autotune.WARP
+            else:
+                assert threads == c.row_block * pb
+                assert c.row_block * autotune.bisect_smem_bytes(pb) <= autotune.SMEM_BUDGET
+            assert c.row_block <= nb
+            assert c.row_block & (c.row_block - 1) == 0
+        # every legal power of two up to the bucket is offered
+        legal = [rb for rb in autotune.ROW_BLOCKS
+                 if rb <= nb and autotune.block_threads(rb, L, method) <= limit]
+        assert sorted({c.row_block for c in cands}) == legal
 
 
 def test_candidate_row_blocks_at_the_main_path_widths():
-    rbs = lambda n, L: [c.row_block for c in autotune.candidates("oga_step", n, L)]
-    assert rbs(768, 10) == [1, 2, 4, 8, 16, 32]
+    rbs = lambda n, L, m="sortscan": sorted(
+        {c.row_block for c in autotune.candidates("oga_step", n, L, methods=(m,))})
+    assert rbs(768, 10) == [1, 2, 4, 8, 16, 32]     # 32 rows of 16 lanes: 16 warps
     assert rbs(49152, 10) == [1, 2, 4, 8, 16, 32]
-    assert rbs(6144, 100) == [1, 2, 4]
+    assert rbs(6144, 100) == [1, 2, 4, 8, 16]       # one warp a row, 512 threads
     assert rbs(3, 10) == [1, 2, 4]
-    assert rbs(64, autotune.MAX_L) == [1]
+    assert rbs(64, autotune.MAX_L) == [1, 2, 4, 8, 16]
+    assert rbs(768, 10, "bisect") == [1, 2, 4, 8, 16, 32]
+    assert rbs(6144, 100, "bisect") == [1, 2, 4]    # 256 threads a row
+    assert rbs(64, autotune.MAX_L, "bisect") == [1]
+
+
+@pytest.mark.parametrize("row_block,L,method,legal", [
+    (1, 10, "sortscan", True),      # half a warp, the other half idle
+    (32, 10, "sortscan", True),     # 32 rows of 16 lanes: 512 threads
+    (64, 10, "sortscan", False),    # not in ROW_BLOCKS
+    (16, 100, "sortscan", True),    # 16 one-warp rows: 512 threads
+    (32, 100, "sortscan", False),   # 1024 threads > SORTSCAN_MAX_THREADS
+    (16, 512, "sortscan", True),
+    (3, 10, "sortscan", False),     # not a power of two
+    (0, 10, "sortscan", False),
+    (32, 10, "bisect", True),       # 32 rows of 32 threads: 1024
+    (4, 100, "bisect", True),       # 4 rows of 256 threads
+    (8, 100, "bisect", False),      # 2048 threads
+    (1, 512, "bisect", True),
+    (2, 512, "bisect", False),
+], ids=lambda v: str(v))
+def test_legal_row_block_per_method(row_block, L, method, legal):
+    assert autotune.legal_row_block(row_block, L, method) is legal
 
 
 def test_candidates_bisect_enumerates_iters():
@@ -179,14 +213,15 @@ def test_damaged_table_is_a_miss_not_a_crash(payload):
 @pytest.mark.parametrize("L,ent_kw", [
     (10, {"row_block": 24}),          # not a power of two
     (10, {"row_block": 64}),          # 64 rows x 32 threads > 1024
-    (100, {"row_block": 8}),          # 8 rows x 256 threads > 1024
+    (100, {"row_block": 8, "method": "bisect"}),  # 8 bisect rows x 256 threads > 1024
+    (100, {"row_block": 32}),         # 32 sortscan rows x 32 threads > 512
     (10, {"row_block": "8"}),         # wrong type
     (10, {"row_block": True}),        # a bool is not a row count
     (10, {"row_block": None}),
     (10, {"method": "quickselect"}),  # unknown method
     (10, {"iters": -3}),              # out of range
     (10, {"iters": 999}),
-], ids=["rb24", "rb64", "rb8-wide", "str-rb", "bool-rb", "none-rb", "method",
+], ids=["rb24", "rb64", "rb8-wide", "rb32-wide", "str-rb", "bool-rb", "none-rb", "method",
         "neg-iters", "huge-iters"])
 def test_malformed_or_illegal_entry_is_a_miss(L, ent_kw):
     _write_cache(_entry(L, **ent_kw))
@@ -307,6 +342,24 @@ def test_dispatch_forces_sortscan_even_if_cache_says_bisect(monkeypatch):
     cfg = ops._tiling("proj", y, None, iters=0)
     assert (cfg.row_block, cfg.method, cfg.iters) == (2, "bisect", 0)
     assert autotune.cache_stats()["misses"] == 0
+
+
+@pytest.mark.parametrize("L,tuned,want", [(100, 8, 4), (100, 2, 2), (10, 32, 32),
+                                           (autotune.MAX_L, 16, 1)])
+def test_dispatch_fits_a_sortscan_row_block_to_bisect(monkeypatch, L, tuned, want):
+    """A sortscan winner of the "proj" table may be a row block the bisect
+    layout refuses (P threads a row): dispatch runs the bisection at the
+    largest legal one below it, and an explicit tiling as pinned."""
+    N = 64
+    autotune._store("proj", N, L, autotune.KernelConfig(tuned, "sortscan", 0), 1.0, {})
+    calls = []
+    monkeypatch.setattr(ops._pb, "proj_bisect", lambda *a, **kw: calls.append(kw))
+    z = _fake_cuda(N, L)
+    ops.proj_bisect(z, z, z, z)
+    assert calls == [{"row_block": want, "iters": None}]
+    assert autotune.legal_row_block(want, L, "bisect")
+    assert autotune.fit_row_block(tuned, L, "bisect") == want
+    assert autotune.fit_row_block(tuned, L, "sortscan") == tuned
 
 
 def test_cpu_dispatch_never_resolves(monkeypatch):

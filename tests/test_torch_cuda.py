@@ -9,6 +9,8 @@ kernel's projection solves in float64, the plain one in float32); 1e-6
 for the sortscan projection against the float64 oracle; 5e-5 for every
 bisection result (the reference's bar for its bisect kernel: the bracket
 width / 2^iters); none across row blocks, where the outputs are equal bit
+for bit, nor between the sortscan kernels and the float64 emulation of
+their register network (tests/_sortscan_network.py), which must agree bit
 for bit. bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
 |y| < 4; both solve in float32 and round once). Flash attention against
 its plain version: 2e-5 in float32 (the scalar kernel; the reference's
@@ -26,9 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+import _sortscan_network as net
 from repro_torch.core import ogasched
 from repro_torch.configs import base as tconfigs
-from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels import _launch, autotune, ops, ref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import oga_step as toga
 from repro_torch.kernels import proj_bisect as tpb
@@ -178,36 +181,36 @@ def test_oga_step_bisect_branch_matches_plain_and_sortscan(dev, N, L):
 @pytest.mark.parametrize("N,L", [(777, 10), (203, 100), (37, 1), (91, 30), (9, 512)])
 def test_every_legal_row_block_gives_the_same_bits(dev, N, L):
     """Rows per block change the grid only: a row's sums, scans and sort
-    run in the same order whatever the block holds, and a row that needs
-    no projection, or the ragged last block (N % row_block != 0), leaves
-    without stranding its neighbours at a barrier."""
+    run in the same order whatever the block holds. A sortscan row that
+    needs no projection beside one that does in a warp, the idle half-warp
+    of a lone 16-lane row and the ragged last block (N % row_block != 0)
+    carry padding through every shuffle; a bisect row that needs no
+    projection leaves without stranding its neighbours at a barrier. Each
+    method runs every row block legal in its own layout."""
     z, a, m, c = _proj_args(_rng(5, N, L), N, L)
     pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
     sargs = _step_args(_rng(6, N, L), N, L, dev)
     sargs[-1][::3, 2] = 1e4  # the capacity binds on two rows in three
-    base = {
-        "proj_sortscan": tss.proj_sortscan(*pargs, row_block=1),
-        "proj_bisect": tpb.proj_bisect(*pargs, row_block=1),
-        "oga_sortscan": toga.oga_step_fused(*sargs, row_block=1),
-        "oga_bisect": toga.oga_step_fused(*sargs, method="bisect", row_block=1),
+    runs = {
+        "proj_sortscan": ("sortscan", lambda rb: tss.proj_sortscan(*pargs, row_block=rb)),
+        "proj_bisect": ("bisect", lambda rb: tpb.proj_bisect(*pargs, row_block=rb)),
+        "oga_sortscan": ("sortscan", lambda rb: toga.oga_step_fused(*sargs, row_block=rb)),
+        "oga_bisect": ("bisect", lambda rb: toga.oga_step_fused(*sargs, method="bisect",
+                                                                row_block=rb)),
     }
-    rbs = [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L)]
-    assert rbs[0] == 1 and (L > 16 or len(rbs) == 6)
-    for rb in rbs[1:]:
-        got = {
-            "proj_sortscan": tss.proj_sortscan(*pargs, row_block=rb),
-            "proj_bisect": tpb.proj_bisect(*pargs, row_block=rb),
-            "oga_sortscan": toga.oga_step_fused(*sargs, row_block=rb),
-            "oga_bisect": toga.oga_step_fused(*sargs, method="bisect", row_block=rb),
-        }
-        torch.cuda.synchronize()
-        for name, want in base.items():
-            assert torch.equal(got[name], want), f"{name} row_block={rb}"
+    for name, (method, run) in runs.items():
+        rbs = [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L, method)]
+        assert rbs[0] == 1 and (L > 16 or len(rbs) == 6)
+        base = run(1)
+        for rb in rbs[1:]:
+            got = run(rb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, base), f"{name} row_block={rb}"
 
 
 def test_wrappers_reject_tilings_the_kernels_do_not_take(dev):
     args = _step_args(_rng(7), 8, 10, dev)
-    for rb in (3, 64):  # not a power of two; 64 rows x 32 threads > 1024
+    for rb in (3, 64):  # not a power of two; 64 rows of 16 lanes > 512 threads
         with pytest.raises(ValueError):
             toga.oga_step_fused(*args, row_block=rb)
     with pytest.raises(ValueError):
@@ -217,6 +220,52 @@ def test_wrappers_reject_tilings_the_kernels_do_not_take(dev):
     z = torch.zeros((4, 100), device=dev)
     with pytest.raises(ValueError):  # 8 rows x 256 threads > 1024
         tpb.proj_bisect(z, z, z, torch.zeros(4, device=dev), row_block=8)
+    with pytest.raises(ValueError):  # 32 one-warp sortscan rows > 512 threads
+        tss.proj_sortscan(z, z, z, torch.zeros(4, device=dev), row_block=32)
+    assert tss.proj_sortscan(z, z, z, torch.ones(4, device=dev), row_block=16).shape == (4, 100)
+
+
+@pytest.mark.parametrize("L", [1, 2, 7, 10, 16, 17, 32, 33, 100, 512])
+def test_sortscan_kernels_give_the_network_bits(dev, L):
+    """The register network against its float64 numpy emulation
+    (tests/_sortscan_network.py), bit for bit, and against the float64
+    oracle (1e-6) and the plain version (2e-6: the plain sweep rounds its
+    breakpoints to float32); the fused step against its plain version
+    (1e-5). Tied breakpoints, masked lanes, a fully masked row, rows that
+    bind beside rows that do not in one warp, and an odd row count, at one
+    row per block and at the largest legal block."""
+    N = 37
+    z, a, m, c = net.case_inputs(_rng(13, L), N, L)
+    pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    want = net.project(z, a, m, c)
+    sargs = _step_args(_rng(14, L), N, L, dev)
+    sargs[-1][::2, 2] = 1e4
+    big = max(rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L))
+    for rb in (1, big):
+        got = tss.proj_sortscan(*pargs, row_block=rb).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got, ref.proj_rows_exact_np(z, a, m, c), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got, ref.proj_rows_sorted(*map(torch.from_numpy, (z, a, m, c))),
+                                   atol=2e-6, rtol=0)
+        step = toga.oga_step_fused(*sargs, row_block=rb)
+        torch.testing.assert_close(step, ref.oga_step_ref(*sargs), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("N,L,row_block", [(1, 10, 1), (3, 10, 2), (37, 10, 4), (33, 10, 32),
+                                           (5, 100, 4), (17, 33, 16)])
+def test_sortscan_ragged_last_warp(dev, N, L, row_block):
+    """The last block holds fewer rows than row_block (and at L <= 16 its
+    last warp may hold one row of two): the launch writes into the first N
+    rows of a larger buffer, its padding rows store nothing past them, and
+    every row it stores has the emulation's bits."""
+    z, a, m, c = net.case_inputs(_rng(15, N, L), N, L)
+    pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    buf = torch.full((N + 1, L), -7.0, device=dev)
+    _launch.launch("oga_step.cu", "repro_proj_sortscan", pargs, buf[:N], L, row_block,
+                   method="sortscan")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(buf[:N].cpu().numpy(), net.project(z, a, m, c))
+    assert (buf[N] == -7.0).all()
 
 
 def test_warmed_dispatch_makes_no_measurement(dev, cache):
