@@ -42,6 +42,24 @@ Phases, each printing one JSON line:
            time of torch's scaled_dot_product_attention beside it; ptxas's
            registers and spills of the bf16 kernel, and the count of
            HGMMA and UTMALDG instructions in the built library.
+  lifecycle the job lifecycle at benchmarks/bench_lifecycle.py's
+           configuration (L 10, R 128, K 6, T 2000, work_mean 1200, seed 0):
+           OGASCHED, the four heuristics and MULTICLASS through
+           lifecycle.run, each with its µs per slot and summarize's metrics
+           against the JAX reference's (LIFECYCLE_REFERENCE, with the port's
+           y0), the first slot where its admitted / departed record leaves
+           the reference's (tools/lifecycle_reference_events.json), the
+           capacity every slot, the launches (one fused step and one
+           projection at (768, 10) a OGASCHED slot), the duration-1
+           reduction to slot mode, and a profile of 100 OGASCHED slots.
+  faults   benchmarks/bench_faults.py's quick configuration (L 10, R 64,
+           work_mean 600; T cut to 500) under its four fault regimes: OGASCHED,
+           the heuristics and heSRPT, goodput, wasted work, evictions,
+           fault drops and recovery_time against FAULTS_REFERENCE, and the
+           surviving capacity every slot.
+  grid_lifecycle  sweep.run_grid(mode="lifecycle") over 8 of the grid's 64
+           Fig. 2 configs at T 200, faults off and on, each row against
+           simulator.run_all(mode="lifecycle") of its config.
   lm_prefill  the LM serving path at gemma2-27b's full width: first the
            float32 check at 2 layers (prefill(S - 1) + serve_step against
            prefill(S)), then all 46 layers in bf16 from seeded random
@@ -50,10 +68,15 @@ Phases, each printing one JSON line:
   lm_serve the continuous-batching Engine on those weights: 8 greedy
            requests over 4 slots, each first token against prefill's.
 
+The kernels phase also holds both sortscan kernels and both bisect kernels
+at the wide rows (L 257 to 4096, one block a row), with rows of zero
+capacity and of z = 0 that must come back exactly 0.
+
 fig2 to grid run on the warmed cache and must make no measurement and
 miss it never. The kernel launch counters are set to 0 before the autotune
-path and read after it, again for the main path (fig2 to grid), and again
-for the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
+path and read after it, again for the main path (fig2 to grid), again for
+the lifecycle path (lifecycle, faults and grid_lifecycle) and again for
+the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
 path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
 line before the last lists every kernel with its launches on each path
 and their sum, its error and its times (flash attention as two kernels,
@@ -66,6 +89,7 @@ the reference package ``repro``.
 """
 from __future__ import annotations
 
+import base64
 import ctypes
 import json
 import os
@@ -74,6 +98,7 @@ import statistics
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -129,12 +154,17 @@ TIMING_REPS = 25
 # barriers, shared and local memory (none may appear) and the shuffles that
 # replace them
 SASS_OPS = ("BAR", "LDS", "STS", "LDL", "STL", "SHFL")
-# the largest slots per lane at which a sortscan kernel must not spill (the
-# main path's widths run E = 2 and E = 8)
-SORTSCAN_NO_SPILL_E = 8
-# sortscan kernel instantiations: (16, 2) and (32, E) for E = 2 .. 32, fused
-# and standalone
-SORTSCAN_INSTANTIATIONS = 12
+# sortscan kernel instantiations in registers: (16, 2) and (32, E) for
+# E = 2 .. 16, fused and standalone; and the two one-block-a-row kernels of
+# the wide rows, which use shared memory and barriers by design
+SORTSCAN_INSTANTIATIONS = 10
+SORTSCAN_WIDE_KERNELS = ("oga_step_sortscan_wide_kernel", "proj_sortscan_wide_kernel")
+# the wide rows the kernels phase holds, 96 rows each, 16 of them against
+# the float64 oracle (its Python loop takes ~0.2 s a row at L = 4096);
+# every 7th row (from row 1) has zero capacity, every 7th (from row 2) z = 0
+WIDE_LS = (257, 300, 512, 1000, 4096)
+WIDE_ROWS = 96
+WIDE_ORACLE_ROWS = 16
 # main-path launches of each sortscan kernel by packed shape: fig2's 2000
 # slots, the slot profile's 2 x 100 and regret's 2000 at (768, 10), with the
 # grid's two single-config rows of 200; the grid's 200 steps in each of 4
@@ -216,6 +246,103 @@ SERVE_CACHE_LEN = 512
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_TIE_GAP = 2 * LM_BF16_DECODE_ATOL
+
+# The job lifecycle at benchmarks/bench_lifecycle.py:27 (the paper's
+# evaluation scale, work_mean 1200: jobs hold resources for many slots and
+# queues form), and the fault regimes of benchmarks/bench_faults.py:35 at
+# its quick configuration (bench_faults.py:55) with T cut from 1500 to 500
+# (heSRPT's 24 projections a slot cost ~20 ms of host time each slot).
+LIFECYCLE_CFG = dict(T=2000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
+LIFECYCLE_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "multiclass")
+FAULTS_CFG = dict(T=500, L=10, R=64, K=6, seed=0, work_mean=600.0)
+FAULTS_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "hesrpt")
+FAULT_REGIMES = {
+    "none": {},
+    "failures": dict(fail_rate=0.02, fail_frac=0.3, repair_mean=40.0),
+    "drains": dict(drain_period=200, drain_len=40, drain_frac=0.5),
+    "shocks": dict(shock_rate=0.01, shock_depth=0.5),
+}
+# The reference's admitted / departed records of both phases (packed bits),
+# written with the pins below by tests/_lifecycle_pins.py.
+LIFECYCLE_EVENTS = os.path.join("tools", "lifecycle_reference_events.json")
+# Readings of the JAX reference package on the CPU (jax 0.9.0) at the
+# lifecycle and faults phases' configurations, OGASCHED started from the
+# port's y0 (sched/lifecycle.py default_y0), made with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_lifecycle_pins.py
+# which also writes LIFECYCLE_EVENTS.
+NAN = float("nan")
+LIFECYCLE_REFERENCE = {
+    'ogasched': {'completed': 7243.0, 'arrived': 7306.0, 'dropped': 6141.0, 'throughput': 3.6215, 'goodput': 4449.305, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.052602767944336, 'jct_p99': 75.0, 'slowdown_mean': 7.4750566482543945, 'utilization': 0.6153579354286194, 'utilization/0': 0.43881839513778687, 'utilization/1': 0.43934157490730286, 'utilization/2': 0.7330856919288635, 'utilization/3': 0.6815967559814453, 'utilization/4': 0.7005822658538818, 'utilization/5': 0.698722779750824, 'avg_reward': 3486.45849609375},
+    'drf': {'completed': 6744.0, 'arrived': 6813.0, 'dropped': 6634.0, 'throughput': 3.372, 'goodput': 4119.911, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.879152297973633, 'jct_p99': 69.0, 'slowdown_mean': 7.569123268127441, 'utilization': 0.7205255627632141, 'utilization/0': 0.4455622732639313, 'utilization/1': 0.6848637461662292, 'utilization/2': 0.8674356937408447, 'utilization/3': 0.7704409956932068, 'utilization/4': 0.7581070065498352, 'utilization/5': 0.7967437505722046, 'avg_reward': 3105.06640625},
+    'fairness': {'completed': 6918.0, 'arrived': 6988.0, 'dropped': 6459.0, 'throughput': 3.459, 'goodput': 4232.269, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.118532180786133, 'jct_p99': 143.830078125, 'slowdown_mean': 7.551406383514404, 'utilization': 0.7176170945167542, 'utilization/0': 0.44760051369667053, 'utilization/1': 0.6833022236824036, 'utilization/2': 0.8677917718887329, 'utilization/3': 0.7703258395195007, 'utilization/4': 0.7580080628395081, 'utilization/5': 0.7786741852760315, 'avg_reward': 3273.46435546875},
+    'binpacking': {'completed': 6750.0, 'arrived': 6820.0, 'dropped': 6627.0, 'throughput': 3.375, 'goodput': 4082.06075, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 21.03940773010254, 'jct_p99': 152.51025390625, 'slowdown_mean': 7.6496148109436035, 'utilization': 0.7187681794166565, 'utilization/0': 0.44075244665145874, 'utilization/1': 0.6830660104751587, 'utilization/2': 0.8670886754989624, 'utilization/3': 0.7708463668823242, 'utilization/4': 0.7561190128326416, 'utilization/5': 0.7947364449501038, 'avg_reward': 3050.881103515625},
+    'spreading': {'completed': 6835.0, 'arrived': 6907.0, 'dropped': 6540.0, 'throughput': 3.4175, 'goodput': 4070.815, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.746599197387695, 'jct_p99': 150.66015625, 'slowdown_mean': 7.568303108215332, 'utilization': 0.7183720469474792, 'utilization/0': 0.438859224319458, 'utilization/1': 0.6841219663619995, 'utilization/2': 0.8671298027038574, 'utilization/3': 0.7707628011703491, 'utilization/4': 0.7558305859565735, 'utilization/5': 0.7935279011726379, 'avg_reward': 3100.634765625},
+    'multiclass': {'completed': 7620.0, 'arrived': 7682.0, 'dropped': 5765.0, 'throughput': 3.81, 'goodput': 4659.606, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 17.641206741333008, 'jct_p99': 60.0, 'slowdown_mean': 7.372726917266846, 'utilization': 0.6769704222679138, 'utilization/0': 0.4445684254169464, 'utilization/1': 0.4443357586860657, 'utilization/2': 0.8628040552139282, 'utilization/3': 0.765011191368103, 'utilization/4': 0.7532891631126404, 'utilization/5': 0.7918137311935425, 'avg_reward': 3672.3203125},
+}
+FAULTS_REFERENCE = {
+    'none': {
+        'ogasched': {'goodput': 2316.0655, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1943.0, 'recovery_time': 0.0},
+        'drf': {'goodput': 2123.25325, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1780.0, 'recovery_time': 0.0},
+        'fairness': {'goodput': 2216.987, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1676.0, 'recovery_time': 0.0},
+        'binpacking': {'goodput': 2082.7045, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1776.0, 'recovery_time': 0.0},
+        'spreading': {'goodput': 2088.644875, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1767.0, 'recovery_time': 0.0},
+        'hesrpt': {'goodput': 2425.764, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1892.0, 'recovery_time': 0.0},
+    },
+    'failures': {
+        'ogasched': {'goodput': 2095.17234375, 'wasted_work': 53413.578125, 'evictions': 223.0, 'fault_drops': 70.0, 'completed': 1860.0, 'recovery_time': 0.0},
+        'drf': {'goodput': 1980.1694140625, 'wasted_work': 50593.41796875, 'evictions': 256.0, 'fault_drops': 97.0, 'completed': 1769.0, 'recovery_time': 0.0},
+        'fairness': {'goodput': 2044.966734375, 'wasted_work': 49877.8828125, 'evictions': 260.0, 'fault_drops': 79.0, 'completed': 1829.0, 'recovery_time': 0.0},
+        'binpacking': {'goodput': 1950.373765625, 'wasted_work': 57559.8671875, 'evictions': 254.0, 'fault_drops': 95.0, 'completed': 1770.0, 'recovery_time': 0.0},
+        'spreading': {'goodput': 1959.34178125, 'wasted_work': 56602.796875, 'evictions': 259.0, 'fault_drops': 92.0, 'completed': 1769.0, 'recovery_time': 0.0},
+        'hesrpt': {'goodput': 2309.342, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1792.0, 'recovery_time': 0.0},
+    },
+    'drains': {
+        'ogasched': {'goodput': 2207.2044765625, 'wasted_work': 21120.51171875, 'evictions': 43.0, 'fault_drops': 12.0, 'completed': 1877.0, 'recovery_time': NAN},
+        'drf': {'goodput': 2028.5416953125, 'wasted_work': 19564.65234375, 'evictions': 52.0, 'fault_drops': 26.0, 'completed': 1766.0, 'recovery_time': NAN},
+        'fairness': {'goodput': 2070.05908203125, 'wasted_work': 29064.708984375, 'evictions': 46.0, 'fault_drops': 20.0, 'completed': 1808.0, 'recovery_time': NAN},
+        'binpacking': {'goodput': 2025.89990625, 'wasted_work': 18452.359375, 'evictions': 58.0, 'fault_drops': 23.0, 'completed': 1743.0, 'recovery_time': NAN},
+        'spreading': {'goodput': 1990.041484375, 'wasted_work': 37462.1953125, 'evictions': 60.0, 'fault_drops': 25.0, 'completed': 1704.0, 'recovery_time': NAN},
+        'hesrpt': {'goodput': 2316.6835, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1972.0, 'recovery_time': NAN},
+    },
+    'shocks': {
+        'ogasched': {'goodput': 2199.4804453125, 'wasted_work': 29903.90234375, 'evictions': 101.0, 'fault_drops': 29.0, 'completed': 1954.0, 'recovery_time': 0.0},
+        'drf': {'goodput': 2010.708453125, 'wasted_work': 32759.3984375, 'evictions': 106.0, 'fault_drops': 50.0, 'completed': 1780.0, 'recovery_time': 0.0},
+        'fairness': {'goodput': 2030.093765625, 'wasted_work': 51859.3671875, 'evictions': 123.0, 'fault_drops': 44.0, 'completed': 1804.0, 'recovery_time': 0.0},
+        'binpacking': {'goodput': 1988.776984375, 'wasted_work': 34503.4453125, 'evictions': 121.0, 'fault_drops': 48.0, 'completed': 1759.0, 'recovery_time': 0.0},
+        'spreading': {'goodput': 2009.18621484375, 'wasted_work': 25624.330078125, 'evictions': 129.0, 'fault_drops': 41.0, 'completed': 1772.0, 'recovery_time': 0.0},
+        'hesrpt': {'goodput': 2384.95275, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'completed': 1848.0, 'recovery_time': 0.0},
+    },
+}
+# Bars of the lifecycle and faults phases against those readings (PERF.md
+# section 2), on the error |card - reference| / max(|reference|, 1). While
+# the card's admitted / departed record equals the reference's, the runs
+# differ only by float32 sums in another order and the card's projection
+# solved in double: REWARD_RTOL holds every metric. Once the record leaves
+# the reference's (a rounding flips a threshold: a departure, a node
+# ranking), they are two sample paths of one system, and DRIFT_BARS hold
+# each metric at twice the largest error the reference's own readings show
+# when its capacities or job sizes move by one float32 ulp
+# (tests/_lifecycle_pins.py --sensitivity).
+# The reference drifts so only for SPREADING, at the faults phase's
+# failures, drains and shocks regimes; "*" covers utilization and
+# utilization/<k>, and recovery_time, which never moved, keeps REWARD_RTOL.
+DRIFT_BARS = {"*": 0.003, "arrived": 0.043, "avg_reward": 0.025, "completed": 0.045,
+              "dropped": 0.048, "evictions": 0.067, "fault_drops": 0.305, "goodput": 0.016,
+              "jct_mean": 0.044, "jct_p99": 0.174, "slowdown_mean": 0.041, "throughput": 0.045,
+              "wasted_work": 0.536, "recovery_time": REWARD_RTOL}
+# grid_lifecycle: 8 of the grid phase's 64 Fig. 2 configs at T 200, faults
+# off and under the "failures" regime, against run_all of each config; the
+# kernels' path (OGASCHED: one fused and one projection launch at (6144, 10)
+# a slot; FAIRNESS: the projection). heSRPT's batched grid is held to the
+# looped run_all on the CPU (tests/test_torch_sweep.py): its 16 reference
+# runs here would cost ~140 s of host time.
+GRID_LIFECYCLE_CONFIGS = 8
+GRID_LIFECYCLE_T = 200
+GRID_LIFECYCLE_ALGORITHMS = ("ogasched", "fairness")
+GRID_LIFECYCLE_RTOL = 1e-4
+# Steps of the size-aware policies' fluid solve a slot
+# (core/baselines.py MULTICLASS_ITERS): one projection launch each.
+FLUID_ITERS = 24
 
 
 def emit(obj) -> None:
@@ -728,6 +855,240 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
     return line
 
 
+def unpack_events(blob: str, shape) -> np.ndarray:
+    """A (T, L) bool record from packed bits, zlib, base64."""
+    bits = np.frombuffer(zlib.decompress(base64.b64decode(blob)), np.uint8)
+    return np.unpackbits(bits)[:int(np.prod(shape))].reshape(shape).astype(bool)
+
+
+def first_event_diff(tr, record: dict):
+    """The first slot at which the card's admitted or departed record leaves
+    the reference's, or None."""
+    first = None
+    for f in ("admitted", "departed"):
+        got = getattr(tr, f).cpu().numpy()
+        bad = np.nonzero((unpack_events(record[f], got.shape) != got).any(-1))[0]
+        if bad.size:
+            first = int(bad[0]) if first is None else min(first, int(bad[0]))
+    return first
+
+
+def metric_error(got: float, want: float, scale: float = 1.0) -> float:
+    """|got - want| / max(|want|, scale); 0 when both are NaN or equal, inf
+    when one is NaN."""
+    if np.isnan(want) or np.isnan(got):
+        return 0.0 if np.isnan(want) and np.isnan(got) else float("inf")
+    if got == want:
+        return 0.0
+    return abs(got - want) / max(abs(want), scale)
+
+
+def hold_metrics(label: str, got: dict, want: dict, bars: dict, scales=None) -> dict:
+    """Each metric of ``want`` against ``got`` at its bar (``bars`` by
+    metric, "*" for the rest), the error relative to max(|want|, scale)
+    with ``scales`` by metric (1 for the rest); returns the errors."""
+    scales = scales or {}
+    errs = {k: metric_error(got[k], w, scales.get(k, 1.0)) for k, w in want.items()}
+    for k, e in errs.items():
+        bar = bars.get(k, bars["*"])
+        check(e <= bar, f"{label} {k}: {got[k]} vs reference {want[k]} (error {e}, bar {bar})")
+    return errs
+
+
+def capacity_excess(tr, spec, faults) -> float:
+    """max over slots of used - (c_t (1 + FEAS_TOL) + FEAS_TOL), c_t the
+    slot's surviving capacity: at most 0 when every slot is feasible."""
+    from repro_torch.sched import lifecycle
+    c_t = spec.c[None] if faults is None else spec.c[None] * faults[:, None, :]
+    return float((tr.used - (c_t * (1.0 + lifecycle.FEAS_TOL) + lifecycle.FEAS_TOL)).max())
+
+
+def launch_snapshot():
+    """The sortscan kernels' launch counts by packed shape, as plain dicts."""
+    from repro_torch.kernels import oga_step, sortscan
+    return {"oga_step_fused": dict(oga_step.oga_step_fused.launches_by_shape),
+            "proj_sortscan": dict(sortscan.proj_sortscan.launches_by_shape)}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """Launches by kernel and shape between two snapshots ("NxL": n)."""
+    return {k: {f"{N}x{L}": n - before[k].get((N, L), 0)
+                for (N, L), n in sorted(after[k].items()) if n - before[k].get((N, L), 0)}
+            for k in after}
+
+
+def expected_launches(name: str, T: int, N: int, L: int) -> dict:
+    """One fused step and one projection a OGASCHED slot; one projection a
+    slot for a heuristic's allocation; the fluid solve's FLUID_ITERS a slot
+    (plus the allocation for MULTICLASS; heSRPT's solve is its allocation)."""
+    shape = f"{N}x{L}"
+    proj = {"ogasched": T, "multiclass": (FLUID_ITERS + 1) * T, "hesrpt": FLUID_ITERS * T}
+    return {"oga_step_fused": {shape: T} if name == "ogasched" else {},
+            "proj_sortscan": {shape: proj.get(name, T)}}
+
+
+def lifecycle_phase(torch, dev) -> dict:
+    """benchmarks/bench_lifecycle.py's configuration through lifecycle.run
+    for every algorithm, held to the reference's readings."""
+    from repro_torch.core import ogasched
+    from repro_torch.sched import lifecycle, trace
+
+    t_phase = time.perf_counter()
+    cfg = trace.TraceConfig(**LIFECYCLE_CFG)
+    spec, arr, works = trace.make_lifecycle(cfg)
+    with open(os.path.join(ROOT, LIFECYCLE_EVENTS)) as f:
+        records = json.load(f)["lifecycle"]["records"]
+    N, L = cfg.R * cfg.K, cfg.L
+    rows = {}
+    for name in LIFECYCLE_ALGORITHMS:
+        before = launch_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = lifecycle.run(spec, arr, works, name)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) * 1e6 / cfg.T
+        launched = launch_delta(before, launch_snapshot())
+        summary = lifecycle.summarize(tr, spec)
+        got = {"avg_reward": float(tr.rewards.mean()), **summary}
+        first = first_event_diff(tr, records[name])
+        rows[name] = {"us_per_slot": us, **got, "first_event_diff_slot": first,
+                      "capacity_excess": capacity_excess(tr, spec, None), "launches": launched}
+        emit({"phase": "lifecycle", "algorithm": name, **rows[name]})
+        check(launched == expected_launches(name, cfg.T, N, L),
+              f"lifecycle {name}: launches {launched}")
+        check(rows[name]["capacity_excess"] <= 0.0, f"lifecycle {name}: over capacity")
+        bars = DRIFT_BARS if first is not None else {"*": REWARD_RTOL}
+        rows[name]["errors"] = hold_metrics(f"lifecycle {name}", got, LIFECYCLE_REFERENCE[name],
+                                            bars)
+    # duration-1 reduction: every job's work 0 gives slot mode's rewards
+    y0 = lifecycle.default_y0(spec)
+    tr1 = lifecycle.run(spec, arr, torch.zeros_like(works), "ogasched", y0=y0)
+    r_slot, _ = ogasched.run(spec, arr, eta0=25.0, decay=0.9999, y0=y0)
+    scale = max(1.0, float(r_slot.abs().max()))
+    d1_err = float((tr1.rewards - r_slot).abs().max())
+    check(d1_err <= 1e-4 * scale, f"lifecycle duration-1 vs slot mode: {d1_err}")
+    check(bool((tr1.jct[tr1.departed] == 1.0).all()) and int(tr1.dropped[-1]) == 0,
+          "lifecycle duration-1: a job queued or stayed")
+    # where an OGASCHED lifecycle slot's time goes: 100 profiled slots
+    lifecycle.run(spec, arr[:100], works[:100], "ogasched", y0=y0)
+    profile = device_profile(torch, lambda: lifecycle.run(spec, arr[:100], works[:100],
+                                                          "ogasched", y0=y0))
+    profile["us_per_slot"] = profile["wall_ms"] * 1e3 / 100
+    profile["device_busy_us_per_slot"] = profile["device_busy_ms"] * 1e3 / 100
+    line = {"phase": "lifecycle", "config": LIFECYCLE_CFG,
+            "bars": {"no_drift": REWARD_RTOL, "drift": DRIFT_BARS},
+            "duration1_max_abs": d1_err, "duration1_bar": 1e-4 * scale,
+            "ogasched_slot_profile": profile, "phase_s": time.perf_counter() - t_phase,
+            "summary": {n: {k: r[k] for k in ("us_per_slot", "jct_mean", "goodput",
+                                              "first_event_diff_slot")}
+                        for n, r in rows.items()}}
+    emit(line)
+    return line
+
+
+def faults_phase(torch, dev) -> dict:
+    """benchmarks/bench_faults.py's quick configuration under its four
+    regimes, held to the reference's readings."""
+    from repro_torch.sched import lifecycle, trace
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, LIFECYCLE_EVENTS)) as f:
+        records = json.load(f)["faults"]["records"]
+    out = {}
+    for regime, fkw in FAULT_REGIMES.items():
+        cfg = trace.TraceConfig(**FAULTS_CFG, faults=trace.FaultConfig(**fkw))
+        spec, arr, works = trace.make_lifecycle(cfg)
+        faults = trace.build_faults(cfg) if cfg.faults.active else None
+        f_np = (np.ones((cfg.T, cfg.K), np.float32) if faults is None
+                else faults.cpu().numpy())
+        N, L = cfg.R * cfg.K, cfg.L
+        for name in FAULTS_ALGORITHMS:
+            before = launch_snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = lifecycle.run(spec, arr, works, name, faults=faults)
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) * 1e6 / cfg.T
+            launched = launch_delta(before, launch_snapshot())
+            s = lifecycle.summarize(tr, spec)
+            got = {k: s[k] for k in ("goodput", "wasted_work", "evictions", "fault_drops",
+                                     "completed")}
+            got["recovery_time"] = lifecycle.recovery_time(tr.rewards.cpu().numpy(), f_np)
+            first = first_event_diff(tr, records[regime][name])
+            row = {"us_per_slot": us, **got, "first_event_diff_slot": first,
+                   "capacity_excess": capacity_excess(tr, spec, faults), "launches": launched}
+            emit({"phase": "faults", "regime": regime, "algorithm": name, **row})
+            check(launched == expected_launches(name, cfg.T, N, L),
+                  f"faults {regime} {name}: launches {launched}")
+            check(row["capacity_excess"] <= 0.0, f"faults {regime} {name}: over capacity")
+            row["errors"] = hold_metrics(f"faults {regime} {name}", got,
+                                         FAULTS_REFERENCE[regime][name],
+                                         DRIFT_BARS if first is not None else {"*": REWARD_RTOL})
+            out[f"{regime}/{name}"] = row
+    line = {"phase": "faults", "config": FAULTS_CFG, "regimes": FAULT_REGIMES,
+            "bars": {"no_drift": REWARD_RTOL, "drift": DRIFT_BARS},
+            "phase_s": time.perf_counter() - t_phase,
+            "goodput": {k: r["goodput"] for k, r in out.items()},
+            "first_event_diff_slot": {k: r["first_event_diff_slot"] for k, r in out.items()},
+            "worst_error": max(max(r["errors"].values()) for r in out.values())}
+    emit(line)
+    return line
+
+
+def grid_lifecycle_phase(torch, dev) -> dict:
+    """sweep.run_grid(mode="lifecycle") over 8 Fig. 2 configs, faults off
+    and on, each row against simulator.run_all(mode="lifecycle")."""
+    from repro_torch.sched import simulator, sweep, trace
+
+    t_phase = time.perf_counter()
+    out = {}
+    for label, fkw in (("clean", {}), ("failures", FAULT_REGIMES["failures"])):
+        base = trace.TraceConfig(T=GRID_LIFECYCLE_T, L=10, R=128, K=6, contention=10.0,
+                                 faults=trace.FaultConfig(**fkw))
+        points = sweep.make_grid(base, seeds=range(GRID_LIFECYCLE_CONFIGS))
+        batch = sweep.build_batch(points, mode="lifecycle")
+        before = launch_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traces = sweep.run_grid(batch, GRID_LIFECYCLE_ALGORITHMS, mode="lifecycle")
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) * 1e6 / GRID_LIFECYCLE_T
+        launched = launch_delta(before, launch_snapshot())
+        N = GRID_LIFECYCLE_CONFIGS * 128 * 6
+        want = {k: {} for k in launched}
+        for name in GRID_LIFECYCLE_ALGORITHMS:
+            for k, v in expected_launches(name, GRID_LIFECYCLE_T, N, 10).items():
+                for shape, n in v.items():
+                    want[k][shape] = want[k].get(shape, 0) + n
+        check(launched == want, f"grid_lifecycle {label}: launches {launched}")
+        summary = sweep.summarize_lifecycle(traces, batch)
+        worst = 0.0
+        for g, p in enumerate(points):
+            single = simulator.run_all(p.cfg, algorithms=GRID_LIFECYCLE_ALGORITHMS,
+                                       mode="lifecycle")
+            for name in GRID_LIFECYCLE_ALGORITHMS:
+                r = traces[name].rewards[g].cpu().numpy()
+                err = float(np.abs(r - single[name].rewards).max()
+                            / max(1.0, float(np.abs(single[name].rewards).max())))
+                check(err <= GRID_LIFECYCLE_RTOL, f"grid_lifecycle {label} row {g} {name}: {err}")
+                # wasted work sums size - remaining at evictions: its rounding
+                # scales with the job sizes, not with the (small) sum
+                errs = hold_metrics(f"grid_lifecycle {label} row {g} {name}",
+                                    {k: float(summary[f"{k}/{name}"][g])
+                                     for k in single[name].lifecycle},
+                                    single[name].lifecycle, {"*": GRID_LIFECYCLE_RTOL},
+                                    {"wasted_work": base.work_mean})
+                worst = max(worst, err, *errs.values())
+        out[label] = {"per_step_us": us, "launches": launched, "row_vs_run_all_worst": worst,
+                      "goodput_mean": {n: float(summary[f"goodput/{n}"].mean())
+                                       for n in GRID_LIFECYCLE_ALGORITHMS}}
+    line = {"phase": "grid_lifecycle", "configs": GRID_LIFECYCLE_CONFIGS, "T": GRID_LIFECYCLE_T,
+            "algorithms": list(GRID_LIFECYCLE_ALGORITHMS), "rtol": GRID_LIFECYCLE_RTOL,
+            **out, "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -790,13 +1151,18 @@ def smoke(torch) -> dict:
                       if "registers" in ln or "Compiling entry" in ln or "stack frame" in ln]
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas})
-    # the sortscan kernels work in registers and shuffles: no shared
-    # memory, no barrier, and no spill at the widths the main path runs
+    # the sortscan kernels of L <= 256 work in registers and shuffles: no
+    # shared memory, no barrier; no projection kernel spills at any width
     oga_lib = build.library_path("oga_step.cu")
     oga_ptxas = ptxas_by_kernel(oga_lib.with_suffix(".log").read_text())
     oga_sass = sass_ops_by_kernel(str(oga_lib))
-    sortscan_build = {}
+    sortscan_build, wide_build = {}, {}
     for name, rep in oga_ptxas.items():
+        wide = next((k for k in SORTSCAN_WIDE_KERNELS if k in name), None)
+        if wide is not None:
+            wide_build[wide] = {**rep, "sass": {op: oga_sass[name][op]
+                                                for op in SASS_OPS + ("total",)}}
+            continue
         layout = sortscan_layout_of(name)
         if layout is None:
             continue
@@ -806,12 +1172,18 @@ def smoke(torch) -> dict:
         check(rep["smem_bytes"] == 0 and rep["barriers"] == 0
               and ent["sass"]["BAR"] == ent["sass"]["LDS"] == ent["sass"]["STS"] == 0,
               f"{kern}<{W},{E}> uses shared memory or a barrier: {ent}")
-        if E <= SORTSCAN_NO_SPILL_E:
-            check(rep["stack_bytes"] == rep["spill_store_bytes"] == 0
-                  and ent["sass"]["LDL"] == ent["sass"]["STL"] == 0,
-                  f"{kern}<{W},{E}> spills: {ent}")
     check(len(sortscan_build) == SORTSCAN_INSTANTIATIONS,
           f"sortscan instantiations built: {sorted(sortscan_build)}")
+    check(sorted(wide_build) == sorted(SORTSCAN_WIDE_KERNELS),
+          f"wide sortscan kernels built: {sorted(wide_build)}")
+    projection_ptxas = {**oga_ptxas, **ptxas_by_kernel(
+        build.library_path("proj_bisect.cu").with_suffix(".log").read_text())}
+    for name, rep in projection_ptxas.items():
+        check(rep["stack_bytes"] == rep["spill_store_bytes"] == rep["spill_load_bytes"] == 0,
+              f"{name} spills: {rep}")
+    check(all(ent["sass"]["LDL"] == ent["sass"]["STL"] == 0
+              for ent in list(sortscan_build.values()) + list(wide_build.values())),
+          "a sortscan kernel reads or writes local memory")
 
     # -------------------------------------------------------------- kernels
     seeds = np.random.SeedSequence(20261017).spawn(8)
@@ -1016,10 +1388,77 @@ def smoke(torch) -> dict:
         }
         proj_rows[label]["ms_by_row_block"], proj_rows[label]["launch_floor_ms_by_row_block"] = \
             by_row_block(lambda rb: ss_kernel.proj_sortscan(*args, row_block=rb), N, L)
+    # the wide rows: one block a row, slots in shared memory (row block 1)
+    wide_rows = {}
+    for L in WIDE_LS:
+        N = WIDE_ROWS
+        rng = np.random.default_rng([20261017, 2, L])
+        z, a, m, c = proj_inputs(rng, N, L, loose_every=5)
+        c[1::7] = 0.0            # zero capacity
+        z[2::7] = 0.0            # nothing asked
+        args = cuda(z, a, m, c)
+        got = ops.proj_sortscan(*args)
+        y = got.cpu().numpy()
+        # the plain version on CPU copies: on the card its float32 sort and
+        # cumsum over up to 8192 slots lose ~1e-3 at L = 4096 (the kernel
+        # equals the float64 oracle there)
+        plain = ref.proj_rows_sorted(*map(torch.from_numpy, (z, a, m, c))).numpy()
+        sample = np.unique(np.r_[np.arange(WIDE_ORACLE_ROWS // 2),
+                                 np.arange(1, N, 7)[:WIDE_ORACLE_ROWS // 4],
+                                 np.arange(2, N, 7)[:WIDE_ORACLE_ROWS // 4]])
+        oracle_err = float(np.abs(y[sample] - ref.proj_rows_exact_np(
+            z[sample], a[sample], m[sample], c[sample])).max())
+        err = float(np.abs(y - plain).max())
+        zeros_exact = bool((y[1::7] == 0.0).all() and (y[2::7] == 0.0).all())
+        check(oracle_err <= PROJ_ATOL, f"proj_sortscan L={L} vs float64 oracle {oracle_err}")
+        check(err <= PROJ_PLAIN_ATOL, f"proj_sortscan L={L} vs plain {err}")
+        check(zeros_exact, f"proj_sortscan L={L}: zero-capacity or zero rows not exactly 0")
+        sargs = step_inputs(rng, N, L)
+        sargs[-1][1::7, 2] = 0.0
+        step = ops.oga_step_fused(*sargs)
+        step_err = float((step.cpu() - ref.oga_step_ref(*(t.cpu() for t in sargs))).abs().max())
+        check(step_err <= OGA_STEP_ATOL, f"oga_step_fused L={L} vs plain {step_err}")
+        check(bool((step[1::7] == 0.0).all()), f"oga_step_fused L={L}: zero-capacity rows not 0")
+        bis = ops.proj_bisect(*args)
+        bis_err = float((bis - ref.proj_rows_bisect(*args)).abs().max())
+        check(bis_err <= BISECT_ATOL, f"proj_bisect L={L} vs plain {bis_err}")
+        feasible(bis.cpu().numpy(), a, m, c)
+        step_bis = ops.oga_step_fused(*sargs, tiling=bisect_pin)
+        step_bis_err = float((step_bis - ref.oga_step_ref(*sargs, proj="bisect")).abs().max())
+        check(step_bis_err <= BISECT_ATOL, f"oga_step_fused bisect L={L} vs plain {step_bis_err}")
+        n_need = int(((np.clip(z, 0.0, a) * m).sum(1) > c).sum())
+        t_p, by_p = bound(proj_bytes(N, L), proj_ops(N, L))
+        t_s, by_s = bound(oga_bytes(N, L), proj_ops(N, L) + 16 * N * L)
+        t_b, by_b = bound(proj_bytes(N, L), bisect_ops(N, L, n_need, autotune.DEFAULT_BISECT_ITERS),
+                          FP32_OPS_PER_S)
+        wide_rows[str(L)] = {
+            "N": N, "L": L, "slots": autotune.slots_for(L),
+            "threads": autotune.row_threads(L), "bisect_threads": autotune.row_threads(L, "bisect"),
+            "smem_bytes": autotune.slots_for(L) * 12 + 8 * autotune.WIDE_THREADS // autotune.WARP,
+            "rows_binding": n_need,
+            "proj_sortscan": {"max_abs_err": err, "oracle_err": oracle_err,
+                              "oracle_rows": len(sample), "zeros_exact": zeros_exact,
+                              "ms": time_ms(lambda: ops.proj_sortscan(*args)),
+                              "plain_ms": time_ms(lambda: ref.proj_rows_sorted(*args)),
+                              "bound_ms": t_p, "bound_by": by_p},
+            "oga_step_fused": {"max_abs_err": step_err,
+                               "ms": time_ms(lambda: ops.oga_step_fused(*sargs)),
+                               "plain_ms": time_ms(lambda: ref.oga_step_ref(*sargs)),
+                               "bound_ms": t_s, "bound_by": by_s},
+            "proj_bisect": {"max_abs_err": bis_err,
+                            "ms": time_ms(lambda: ops.proj_bisect(*args)),
+                            "plain_ms": time_ms(lambda: ref.proj_rows_bisect(*args)),
+                            "bound_ms": t_b, "bound_by": by_b},
+            "oga_step_fused_bisect": {"max_abs_err": step_bis_err,
+                                      "ms": time_ms(lambda: ops.oga_step_fused(
+                                          *sargs, tiling=bisect_pin))},
+            "launch_floor_ms": floor_ms(N, L, 1),
+        }
     emit({"phase": "kernels", "row_block": autotune.DEFAULT_ROW_BLOCK,
           "oga_step_fused": oga_rows, "oga_step_fused_bisect": oga_bisect_rows,
           "proj_sortscan": proj_rows, "proj_bisect": bisect_rows,
-          "sortscan_kernels_build": sortscan_build,
+          "wide_rows": wide_rows,
+          "sortscan_kernels_build": sortscan_build, "wide_kernels_build": wide_build,
           "oga_step_atol": OGA_STEP_ATOL, "proj_atol": PROJ_ATOL,
           "proj_plain_atol": PROJ_PLAIN_ATOL, "bisect_atol": BISECT_ATOL,
           "timing": f"ms: device time, median of {TIMING_REPS} back-to-back calls "
@@ -1268,8 +1707,20 @@ def smoke(torch) -> dict:
     check(main_by_shape == MAIN_LAUNCHES_BY_SHAPE,
           f"main-path launches by shape: {main_by_shape}")
 
-    # ----------------------------------------------------------- serve path
+    # ------------------------------------------------------- lifecycle path
     del batch, spec_g, arr_g, out_g, spec2, arr2, sub
+    torch.cuda.empty_cache()
+    zero_launches()
+    lifecycle_phase(torch, dev)
+    faults_phase(torch, dev)
+    grid_lifecycle_phase(torch, dev)
+    lifecycle_counts = launches()
+    for name, n in zip(names[:2], lifecycle_counts):
+        check(n > 0, f"{name} was not launched on the lifecycle path")
+    lifecycle_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
+                          for name, w in zip(names[:2], wrappers[:2])}
+
+    # ----------------------------------------------------------- serve path
     torch.cuda.empty_cache()
     zero_launches()
     lm_cfg, lm_params = lm_prefill_phase(torch, dev)
@@ -1281,15 +1732,22 @@ def smoke(torch) -> dict:
         check(n > 0, f"{name} was not launched on the serve path")
 
     # ---------------------------------------------------------- kernel line
-    paths = {"autotune": tune_launches, "main": counts, "serve": serve_counts}
+    paths = {"autotune": tune_launches, "main": counts, "lifecycle": lifecycle_counts,
+             "serve": serve_counts}
     emit({"phase": "paths", "autotune_cache": stats,
           "launches": {p: dict(zip(names, c)) for p, c in paths.items()},
-          "main_launches_by_shape": main_by_shape})
+          "main_launches_by_shape": main_by_shape,
+          "lifecycle_launches_by_shape": lifecycle_by_shape})
     csrc = "src/repro_torch/kernels/csrc/"
 
     def by_path(i):
         """A kernel's launches on each path; "launches" is their sum."""
         return {p: c[i] for p, c in paths.items()}
+
+    def wide_times(kernel):
+        """A kernel's times at the wide rows, by L."""
+        return {L: {k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                for L, r in wide_rows.items()}
 
     fl, fl32 = flash["path_bf16"]["global"], flash["path_f32"]["global"]
     small = flash["small"]
@@ -1299,27 +1757,32 @@ def smoke(torch) -> dict:
          "launches": sum(by_path(0).values()),
          "launches_by_path": by_path(0),
          "main_launches_by_shape": main_by_shape["oga_step_fused"],
-         "max_abs_err": max(r["max_abs_err"] for r in oga_rows.values()),
+         "lifecycle_launches_by_shape": lifecycle_by_shape["oga_step_fused"],
+         "max_abs_err": max([r["max_abs_err"] for r in oga_rows.values()]
+                            + [r["oga_step_fused"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": oga_rows["fig2"]["ms"], "plain_ms": oga_rows["fig2"]["plain_ms"],
          "bound_ms": oga_rows["fig2"]["bound_ms"], "bound_by": oga_rows["fig2"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "wide_rows": wide_times("oga_step_fused")},
         {"name": "proj_sortscan", "route": "cuda", "source": csrc + "oga_step.cu",
          "replaces": "src/repro/kernels/sortscan.py:171",
          "launches": sum(by_path(1).values()),
          "launches_by_path": by_path(1),
          "main_launches_by_shape": main_by_shape["proj_sortscan"],
-         "max_abs_err": max(r["max_abs_err"] for r in proj_rows.values()),
+         "lifecycle_launches_by_shape": lifecycle_by_shape["proj_sortscan"],
+         "max_abs_err": max([r["max_abs_err"] for r in proj_rows.values()]
+                            + [r["proj_sortscan"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": proj_rows["fig2"]["ms"], "plain_ms": proj_rows["fig2"]["plain_ms"],
          "bound_ms": proj_rows["fig2"]["bound_ms"], "bound_by": proj_rows["fig2"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "wide_rows": wide_times("proj_sortscan")},
         {"name": "proj_bisect", "route": "cuda", "source": csrc + "proj_bisect.cu",
          "replaces": "src/repro/kernels/proj_bisect.py:89",
          "launches": sum(by_path(2).values()),
          "launches_by_path": by_path(2),
-         "max_abs_err": max(r["max_abs_err"] for r in bisect_rows.values()),
+         "max_abs_err": max([r["max_abs_err"] for r in bisect_rows.values()]
+                            + [r["proj_bisect"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": bisect_rows["fig2"]["ms"], "plain_ms": bisect_rows["fig2"]["plain_ms"],
          "bound_ms": bisect_rows["fig2"]["bound_ms"], "bound_by": bisect_rows["fig2"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "wide_rows": wide_times("proj_bisect")},
         {"name": "flash_attention_bf16", "kernel": "flash_attention_wgmma_kernel",
          "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",

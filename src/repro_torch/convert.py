@@ -3,7 +3,8 @@
 A test feeds both packages the same cluster spec, arrivals and initial
 decision: it builds them once as numpy arrays (or reads the reference's
 ``ClusterSpec`` through ``np.asarray``) and hands them to the port here;
-likewise an LM's parameters (``params_from_reference``). Nothing in this
+likewise a job lifecycle's mid-trace state (``lifecycle_state_from_reference``)
+and an LM's parameters (``params_from_reference``). Nothing in this
 module imports JAX.
 """
 from __future__ import annotations
@@ -74,3 +75,24 @@ def params_from_reference(cfg, params_np, device: DeviceLike = None) -> dict:
     out["blocks"] = [_tree(stacked, lambda a, i=i: _leaf_tensor(a[i], dev, dtype))
                      for i in range(cfg.n_layers)]
     return out
+
+
+def lifecycle_state_from_reference(obj, device: DeviceLike = None):
+    """The port's ``sched.lifecycle.LifecycleState`` (G = 1) from the
+    reference's ``LifecycleState``, or any object with its fields as
+    numpy-readable arrays: float fields float32, counters int32, the slot
+    counter a host int. Both packages can then step the same state."""
+    from repro_torch.sched.lifecycle import LifecycleState
+
+    dev = resolve_device(device)
+    out = {}
+    for f in LifecycleState.__dataclass_fields__:
+        arr = np.array(getattr(obj, f))
+        if f == "t":
+            out[f] = int(arr.reshape(-1)[0])
+            continue
+        dtype = torch.int32 if arr.dtype.kind in "iu" else torch.float32
+        # the per-configuration scalars become (1,), every other field gains G = 1
+        arr = arr.reshape(1) if f in ("dropped", "rdropped", "eta") else arr[None]
+        out[f] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+    return LifecycleState(**out)

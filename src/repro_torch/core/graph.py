@@ -10,8 +10,12 @@ the same class, so ``L``/``R``/``K`` read the trailing axes.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
+import numpy as np
 import torch
+
+from repro_torch.core import utilities
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +102,73 @@ def zeros_like_decision(spec: ClusterSpec) -> torch.Tensor:
     lead = tuple(spec.mask.shape[:-2])
     return torch.zeros(lead + (spec.L, spec.R, spec.K), dtype=spec.a.dtype,
                        device=spec.device)
+
+
+def residual_capacity(spec: ClusterSpec, held: torch.Tensor,
+                      capacity: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """c - sum_l held_l, floored at 0: the capacity left for new admissions.
+
+    ``held`` (.., L, R, K) is what jobs still in service hold
+    (sched.lifecycle); ``capacity`` (.., R, K) replaces the nominal
+    ``spec.c`` with a slot's surviving capacity under faults. The floor
+    absorbs float error of long runs and held allocations above a freshly
+    collapsed capacity before eviction settles.
+    """
+    c = spec.c if capacity is None else capacity
+    used = (held * spec.mask[..., None]).sum(-3)  # (.., R, K)
+    # clamp_min is the floor the rule asks for (it knows jnp.maximum only)
+    # lint: disable=unvalidated-capacity-mask
+    return torch.clamp_min(c - used, 0.0)
+
+
+def residual_spec(spec: ClusterSpec, held: torch.Tensor,
+                  capacity: Optional[torch.Tensor] = None) -> ClusterSpec:
+    """The same problem with capacities netted by ``held`` (see
+    ``residual_capacity``)."""
+    return dataclasses.replace(spec, c=residual_capacity(spec, held, capacity))
+
+
+Generator = Union[np.random.Generator, torch.Generator]
+
+
+def random_feasible_decision(spec: ClusterSpec, gen: Generator) -> torch.Tensor:
+    """A strictly feasible y(1) in Y for OGA initialisation: uniform draws
+    scaled by the caps and the mask, each (r, k) column scaled down to its
+    capacity. ``gen`` is a numpy ``Generator`` (draws made on the host in
+    float32, so a numpy caller can rebuild them) or a ``torch.Generator`` on
+    the spec's device. A stacked spec takes one draw of (L, R, K), shared
+    by every configuration."""
+    shape = (spec.L, spec.R, spec.K)
+    if isinstance(gen, np.random.Generator):
+        u = torch.from_numpy(gen.random(shape, dtype=np.float32)).to(spec.device)
+    else:
+        u = torch.rand(shape, generator=gen, dtype=spec.a.dtype, device=spec.device)
+    y = u * spec.a[..., :, None, :] * spec.mask[..., None]
+    used = y.sum(-3)                                            # (.., R, K)
+    scale = torch.clamp_max(spec.c / torch.clamp_min(used, 1e-9), 1.0)
+    return y * scale[..., None, :, :]
+
+
+def make_random_spec(gen: torch.Generator, L: int = 10, R: int = 128, K: int = 6,
+                     density: float = 0.5, contention: float = 10.0,
+                     alpha_range: tuple = (1.0, 1.5), beta_range: tuple = (0.3, 0.5),
+                     kinds=None, dtype=torch.float32) -> ClusterSpec:
+    """Random spec following the paper's default parameterisation (Tab. 2),
+    drawn from ``gen`` on its device: the reference's distributions, not its
+    bits (the reference draws from JAX keys)."""
+    dev = gen.device
+    rand = lambda *shape: torch.rand(shape, generator=gen, dtype=dtype, device=dev)
+    mask = (rand(L, R) < density).to(dtype)
+    # every port needs >= 1 instance: a diagonal-ish band
+    mask[torch.arange(L, device=dev), torch.arange(L, device=dev) % R] = 1.0
+    # capacities c_r^k in [20, 100]; requests a_l^k in [0.5, 2.0] * contention
+    c = 20.0 + 80.0 * rand(R, K)
+    a = (0.5 + 1.5 * rand(L, K)) * contention
+    alpha = alpha_range[0] + (alpha_range[1] - alpha_range[0]) * rand(R, K)
+    beta = torch.linspace(beta_range[0], beta_range[1], K, dtype=dtype, device=dev)
+    if kinds is None:
+        kinds = [i % utilities.NUM_SEED_KINDS for i in range(K)]
+    spec = ClusterSpec(mask=mask, a=a, c=c, alpha=alpha, beta=beta,
+                       kinds=torch.as_tensor(kinds, dtype=torch.int32, device=dev))
+    spec.validate()
+    return spec

@@ -13,8 +13,17 @@ These are the plain PyTorch versions. The CUDA sortscan kernel
 (``kernels.sortscan.proj_sortscan``) computes the same function on the
 card; ``project_exact_np`` is the float64 numpy oracle both are held to.
 ``project_bisection`` is the reference's bisection A/B baseline.
+
+``project_spec_rows`` is the entry the job lifecycle and the size-aware
+baselines project through: it packs an (L, R, K) decision into the
+kernel's (R*K, L) rows and calls ``kernels.ops.proj_sortscan``, the CUDA
+kernel on the card and ``project_rows_sorted`` on the CPU, as
+``core.regret.offline_optimum`` does. ``fill_rows_to_capacity`` projects
+through the same wrapper.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -111,6 +120,57 @@ def project_rows_sorted(z, a, mask, c):
     return project_rows_sortscan(z, a, mask, c)
 
 
+def fill_rows_to_capacity(z, a, mask, c):
+    """Euclidean projection of each row onto the capacity-SATURATING face
+    {0 <= y <= a, sum(y*m) = min(c, sum(a*m))}: y = clip(z - tau, 0, a)
+    with a signed level tau, so the row exhausts its capacity (or every
+    lane caps out).
+
+    The feasibility solve of work-conserving size-aware policies. For
+    z >= 0 (heSRPT's ideal points theta * c) the signed level reduces to
+    the non-negative one by an offset: z + delta with delta = max(a m)
+    saturates every lane's box clamp, so the exact sweep's tau' = tau +
+    delta >= 0 is exact, and clip is shift-equivariant. Projects through
+    ``kernels.sortscan.proj_sortscan`` (the CUDA kernel on CUDA tensors,
+    ``project_rows_sorted`` on the CPU). z, a, mask: (N, L); c: (N,).
+    Masked-out lanes stay structurally zero.
+    """
+    from repro_torch.kernels import sortscan  # kernels.ref imports this module
+
+    delta = (a.to(torch.float32) * mask.to(torch.float32)).amax(-1, keepdim=True)
+    shifted = (z.to(torch.float32) + delta).contiguous()
+    return sortscan.proj_sortscan(shifted, a, mask, c).to(z.dtype)
+
+
+def fill_to_capacity(z, a, c, mask):
+    """Cluster-level ``fill_rows_to_capacity``: z (L, R, K), a (L, K),
+    c (R, K), mask (L, R), the packing of ``project_sorted``."""
+    L, R, K = z.shape
+    a_rows, m_rows = _cell_rows(a, mask, R, K, L)
+    rows = z.permute(1, 2, 0).reshape(R * K, L).contiguous()
+    out = fill_rows_to_capacity(rows, a_rows.contiguous(), m_rows.contiguous(),
+                                c.reshape(-1).contiguous())
+    return out.reshape(R, K, L).permute(2, 0, 1)
+
+
+def project_spec_rows(spec: ClusterSpec, z: torch.Tensor, c: Optional[torch.Tensor] = None,
+                      *, operands=None) -> torch.Tensor:
+    """Pi_Y(z) for z (.., L, R, K) against capacities ``c`` (.., R, K),
+    ``spec.c`` when None: one ``kernels.ops.proj_sortscan`` over the packed
+    (.., R*K, L) rows, so a stacked spec (leading G) projects all its
+    configurations in one launch. ``operands`` carries
+    ``ops.pack_spec_operands(spec)`` so a loop over slots packs the static
+    rows once."""
+    from repro_torch.kernels import ops  # kernels.ops imports this module
+
+    L, R, K = spec.L, spec.R, spec.K
+    a_rows, mask_rows, _ = ops.pack_spec_operands(spec) if operands is None else operands
+    c = spec.c if c is None else c
+    z_rows = ops.pack_rows(z).reshape(-1, L)
+    out = ops.proj_sortscan(z_rows, a_rows, mask_rows, c.reshape(-1).contiguous())
+    return ops.unpack_rows(out.reshape(*z.shape[:-3], R * K, L), L, R, K)
+
+
 def _cell_rows(spec_a, spec_mask, R, K, L):
     a_rows = spec_a.T[None].expand(R, K, L).reshape(R * K, L)
     m_rows = spec_mask.T[:, None].expand(R, K, L).reshape(R * K, L)
@@ -191,3 +251,79 @@ def project_exact_np(z: np.ndarray, a: np.ndarray, c: float) -> np.ndarray:
     else:  # g is linear on the segment
         tau = lo_t + (lo_v - c) * (hi_t - lo_t) / (lo_v - hi_v)
     return np.clip(z - tau, 0.0, a)
+
+
+def project_alg1_np(z: np.ndarray, a: np.ndarray, c: float) -> np.ndarray:
+    """Paper Algorithm 1 (steps 7-30) for one (r, k) cell, verbatim (a copy
+    of ``repro.core.projection.project_alg1_np``).
+
+    Sorts z descending, iterates the B1 (at cap) / B2 (at zero) / B3
+    (interior) partition with rho from eq. 35 until no illegal allocation
+    remains.
+    """
+    z = np.asarray(z, np.float64)
+    a = np.asarray(a, np.float64)
+    n = len(z)
+    order = np.argsort(-z)  # step 7: sort descending
+    zs, as_ = z[order], a[order]
+    b1: set[int] = set()
+    yhat = np.zeros(n)
+    outer = 0
+    while True:  # outer while (step 9): one cap moves to B1 per pass
+        outer += 1
+        if outer > n + 2:
+            raise RuntimeError("Alg1 failed to converge")
+        # steps 10-13: B2 resets to empty, B3 to the non-capped ports
+        b2: set[int] = set()
+        b3 = set(range(n)) - b1
+        while True:  # inner repeat (steps 18-30)
+            if b3:
+                rho = 2.0 * (sum(zs[i] for i in b3) - c + sum(as_[i] for i in b1)) / len(b3)
+                rho = max(rho, 0.0)  # eq. 35
+            else:
+                rho = 0.0
+            s_rk: set[int] = set()
+            for i in range(n):  # step 21
+                if i in b1:
+                    yhat[i] = as_[i]
+                elif i in b2:
+                    yhat[i] = 0.0
+                elif i in b3:
+                    yhat[i] = zs[i] - rho / 2.0
+                    if yhat[i] < 0.0:
+                        # z sorted => all later interior ports also illegal
+                        s_rk = {j for j in range(i, n) if j in b3}
+                        break
+            if not s_rk:
+                break
+            for j in s_rk:  # step 29: B2 <- B2 u S, B3 <- B3 \ S
+                yhat[j] = 0.0
+            b2 |= s_rk
+            b3 -= s_rk
+        # step 15: the first interior port over its cap moves to B1, one a
+        # pass (the paper's rule when caps are uniform)
+        viol = [i for i in sorted(b3) if yhat[i] > as_[i] + 1e-12]
+        if not viol:
+            break
+        b1.add(viol[0])  # step 16
+    out = np.zeros(n)
+    out[order] = np.clip(yhat, 0.0, as_)
+    return out
+
+
+def project_cluster_np(spec: ClusterSpec, z: np.ndarray, method: str = "exact") -> np.ndarray:
+    """The full projection by the per-(r, k) numpy oracle, cell by cell:
+    ``project_exact_np`` ("exact") or ``project_alg1_np`` (any other)."""
+    z = np.asarray(z, np.float64)
+    mask = spec.mask.cpu().numpy()
+    a = spec.a.cpu().numpy()
+    c = spec.c.cpu().numpy()
+    fn = project_exact_np if method == "exact" else project_alg1_np
+    out = np.zeros_like(z)
+    for r in range(spec.R):
+        ports = np.nonzero(mask[:, r])[0]
+        if len(ports) == 0:
+            continue
+        for k in range(spec.K):
+            out[ports, r, k] = fn(z[ports, r, k], a[ports, k], float(c[r, k]))
+    return out

@@ -58,7 +58,7 @@ def reward_grad(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Te
 
 def grad_norm_bound(spec: ClusterSpec) -> torch.Tensor:
     """Upper bound of ||grad q|| (eq. 45): sum_l sum_{r in R_l} ((b*)^2 + K (w_r*)^2)."""
-    w = utilities.util_grad_at_zero(spec.kinds, spec.alpha)   # (R, K)
+    w = utilities.util_grad_at_zero(spec.kinds[..., None, :], spec.alpha)   # (.., R, K)
     w_star = w.amax(-1)                                        # (R,)
     beta_star = spec.beta.amax(-1)[..., None, None]
     per_lr = spec.mask * (beta_star**2 + spec.K * w_star[..., None, :] ** 2)

@@ -5,16 +5,20 @@ The one home of the integers that shape a kernel launch (the
 ``hardcoded-tiling`` lint rule allows them only in a module at this path).
 Counterpart of ``repro.kernels.autotune``, for Hopper.
 
-Layout. A row of L lanes has P = ``slots_for(L)`` breakpoint slots: the
-next power of two at or above 2L, and never below one warp. The two
-projection methods lay a row out differently:
+Layout. A row of L lanes, 1 <= L <= ``MAX_L``, has P = ``slots_for(L)``
+breakpoint slots: the next power of two at or above 2L, and never below
+one warp. The two projection methods lay a row out differently:
 
-* sortscan (``csrc/sortscan.cuh``): a row is ``lanes_per_row(L)`` lanes of
-  one warp, each holding ``slots_per_lane(L)`` slots in registers; at
-  L <= 16 that is half a warp, so ``rows_per_warp(L)`` = 2. A block holds
-  ``row_block`` rows in whole warps and uses no shared memory.
-* bisect (``csrc/bisect.cuh``): a row is P threads, one lane each, with one
-  float of shared memory per warp; a block holds ``row_block * P`` threads.
+* sortscan (``csrc/sortscan.cuh``): a row of L <= ``WIDE_L`` lanes is
+  ``lanes_per_row(L)`` lanes of one warp, each holding
+  ``slots_per_lane(L)`` slots in registers; at L <= 16 that is half a warp,
+  so ``rows_per_warp(L)`` = 2. A block holds ``row_block`` rows in whole
+  warps and uses no shared memory. A wider row is one block of
+  ``WIDE_THREADS`` threads with its slots in shared memory, so its row
+  block is 1 and the tuner has nothing to choose.
+* bisect (``csrc/bisect.cuh``): a row is min(P, ``MAX_THREADS``) threads,
+  up to ``BISECT_LANES`` lanes each (one up to L = 512), with one float of
+  shared memory per warp; a block holds ``row_block`` such rows.
 
 ``legal_row_block(row_block, L, method)`` is the launch test of each. The
 grid is ceil(N / row_block) blocks. Every row reduces and synchronises on
@@ -59,8 +63,13 @@ from repro_torch.kernels import build
 
 WARP = 32                 # threads per warp
 MAX_THREADS = 1024        # threads a Hopper block may hold
-MAX_L = MAX_THREADS // 2  # widest row: 2L breakpoint slots fit in one block
+# widest row: a wide sortscan row's 2 * 4096 slots take 96 KiB of shared
+# memory, within the 227 KiB a Hopper block may opt in to
+MAX_L = 4096
 NARROW_L = 16             # sortscan rows of at most this many lanes: two per warp
+WIDE_L = 256              # sortscan rows wider than this: one block a row
+WIDE_THREADS = 512        # threads of a wide sortscan row's block
+BISECT_LANES = MAX_L // MAX_THREADS  # lanes one bisect thread holds at most
 # threads of a sortscan block, so ptxas may give each up to 128 registers
 SORTSCAN_MAX_THREADS = 512
 # dynamic shared memory a block may take without the opt-in attribute
@@ -109,9 +118,10 @@ def next_pow2(n: int) -> int:
 
 def slots_for(L: int) -> int:
     """Breakpoint slots of one row of ``L`` lanes: 32 at the Fig. 2 width
-    L = 10, 256 at L = 100 (the threads of a bisect row)."""
+    L = 10, 256 at L = 100, 8192 at MAX_L. Raises above MAX_L."""
     if not 1 <= L <= MAX_L:
-        raise ValueError(f"row width L={L} outside the kernels' range 1..{MAX_L}")
+        raise ValueError(f"row width L={L} outside the kernels' range 1..{MAX_L} "
+                         f"(MAX_L = {MAX_L})")
     return max(WARP, next_pow2(2 * L))
 
 
@@ -122,13 +132,15 @@ def rows_per_warp(L: int) -> int:
 
 
 def lanes_per_row(L: int) -> int:
-    """Warp lanes that hold one sortscan row (W in ``csrc/sortscan.cuh``)."""
-    return WARP // rows_per_warp(L)
+    """Threads that hold one sortscan row: W lanes of a warp
+    (``csrc/sortscan.cuh``), or WIDE_THREADS for a row wider than WIDE_L."""
+    return WIDE_THREADS if L > WIDE_L else WARP // rows_per_warp(L)
 
 
 def slots_per_lane(L: int) -> int:
-    """Breakpoint slots each lane of a sortscan row holds in registers (E):
-    2 at L <= 32, P / 32 above (8 at L = 100)."""
+    """Breakpoint slots each thread of a sortscan row holds: in registers
+    (E), 2 at L <= 32 and P / 32 up to WIDE_L (8 at L = 100); in shared
+    memory for a wide row, P / WIDE_THREADS (2 to 16)."""
     return slots_for(L) // lanes_per_row(L)
 
 
@@ -140,15 +152,15 @@ def _check_method(method: str) -> None:
 @functools.cache
 def row_threads(L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
     """Threads of one row, the ``threads`` the C entries take: the row's
-    warp lanes for sortscan, its P slots for bisect."""
+    lanes for sortscan, min(P, MAX_THREADS) for bisect."""
     _check_method(method)
-    return lanes_per_row(L) if method == "sortscan" else slots_for(L)
+    return lanes_per_row(L) if method == "sortscan" else min(slots_for(L), MAX_THREADS)
 
 
 def block_threads(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
     """Threads of a block of ``row_block`` rows: whole warps for sortscan (a
-    lone row of 16 lanes leaves half its warp idle), row_block * P for
-    bisect."""
+    lone row of 16 lanes leaves half its warp idle), row_block *
+    ``row_threads`` for bisect."""
     t = row_block * row_threads(L, method)
     return -(-t // WARP) * WARP if method == "sortscan" else t
 
@@ -164,8 +176,9 @@ def bisect_smem_bytes(p: int) -> int:
 def legal_row_block(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> bool:
     """Whether a block of ``row_block`` rows of width ``L`` launches with
     ``method``: a power of two in ROW_BLOCKS; sortscan: at most
-    SORTSCAN_MAX_THREADS threads; bisect: at most MAX_THREADS threads and
-    its shared memory within SMEM_BUDGET. ``legal_sortscan_launch`` and
+    SORTSCAN_MAX_THREADS threads (so 1 for a wide row); bisect: at most
+    MAX_THREADS threads and its shared memory within SMEM_BUDGET.
+    ``legal_sortscan_launch`` and
     ``legal_bisect_launch`` in ``csrc/`` are the same tests. Cached, as is
     ``row_threads``: every kernel launch asks both."""
     _check_method(method)
@@ -173,7 +186,7 @@ def legal_row_block(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -
         return False
     if method == "sortscan":
         return block_threads(row_block, L, method) <= SORTSCAN_MAX_THREADS
-    p = slots_for(L)
+    p = row_threads(L, method)
     return (row_block * p <= MAX_THREADS
             and row_block * bisect_smem_bytes(p) <= SMEM_BUDGET)
 

@@ -3,8 +3,10 @@
 // Replaces the TPU kernel src/repro/kernels/proj_bisect.py (_water_level,
 // _kernel, proj_bisect) and is the method="bisect" branch of the fused OGA
 // step (src/repro/kernels/oga_step.py _kernel). It computes what
-// _water_level computes, for the P = slots_for(L) threads of one row
-// (RowGroup below), thread l < L holding lane l:
+// _water_level computes, for the p = bisect_threads(L) = min(slots_for(L),
+// 1024) threads of one row (RowGroup below), thread i holding lanes
+// i + p q < L, q < kLanes (one lane a thread up to L = 512; kBisectLanes,
+// up to four, above: with_bisect_layout):
 //
 //   box = clip(z, 0, a) m, need = sum box > c;
 //   lo = max((sum box - c) / max(sum m, 1), 0): g is 1-Lipschitz per active
@@ -14,8 +16,9 @@
 //   the secant tau = lo + (g(lo) - c)(hi - lo) / max(g(lo) - g(hi), 1e-30),
 //   clipped to [lo, hi].
 //
-// Every g is a row reduction; no sort and no shared memory beyond one
-// float per warp. |tau - tau*| <= (hi - lo) / 2^iters, so the result is
+// Every g is a row reduction: a thread sums its own lanes in order, then
+// the row reduces the threads' sums; no sort and no shared memory beyond
+// one float per warp. |tau - tau*| <= (hi - lo) / 2^iters, so the result is
 // within that of the exact sweep, not bitwise. Products and quotients use
 // round-to-nearest intrinsics, so nvcc cannot contract them into FMAs.
 //
@@ -95,15 +98,25 @@ __host__ __device__ constexpr size_t bisect_smem_bytes(int p) {
   return static_cast<size_t>(p / kWarp) * sizeof(float);
 }
 
-// Launch layout of a bisect kernel: row_block rows of p = slots_for(L)
+// Launch layout of a bisect kernel: row_block rows of p = bisect_threads(L)
 // threads per block (a power of two, at most 1024 threads, the rows'
 // shared memory within the 48 KB a block gets without the opt-in
 // attribute). kernels/autotune.py legal_row_block(method="bisect") is the
 // same test.
 constexpr size_t kSmemBudget = 48 * 1024;
+// Lanes one bisect thread holds at most: a row of kMaxL lanes over
+// kMaxThreads threads.
+constexpr int kBisectLanes = kMaxL / kMaxThreads;
+// Rows of at most this many lanes hold one lane a thread (2L slots fit a
+// block of kMaxThreads threads).
+constexpr int kBisectOneLaneL = kMaxThreads / 2;
+
+__host__ __device__ constexpr int bisect_threads(int L) {
+  return slots_for(L) < kMaxThreads ? slots_for(L) : kMaxThreads;
+}
 
 inline bool legal_bisect_launch(int n, int L, int p, int row_block) {
-  return n > 0 && L >= 1 && L <= kMaxL && p == slots_for(L) && row_block >= 1 &&
+  return n > 0 && L >= 1 && L <= kMaxL && p == bisect_threads(L) && row_block >= 1 &&
          (row_block & (row_block - 1)) == 0 && row_block <= kMaxThreads / p &&
          row_block * bisect_smem_bytes(p) <= kSmemBudget;
 }
@@ -141,38 +154,75 @@ __device__ __forceinline__ float* bisect_row_smem(void* smem, const Row& g) {
   return static_cast<float*>(smem) + g.bar * (g.p / kWarp);
 }
 
+// Calls f(integral_constant<kSync>, integral_constant<kLanes>) with the
+// layout of a bisect launch: one lane a thread and with_sync_mode's sync
+// for rows of at most kBisectOneLaneL lanes; kBisectLanes lanes a thread
+// and one row of kMaxThreads threads a block (barrier 0) above.
+template <typename F>
+void with_bisect_layout(int L, int p, int row_block, F&& f) {
+  using std::integral_constant;
+  if (L > kBisectOneLaneL) {
+    f(integral_constant<int, kSyncBlock>{}, integral_constant<int, kBisectLanes>{});
+    return;
+  }
+  with_sync_mode(p, row_block, [&](auto sync) { f(sync, integral_constant<int, 1>{}); });
+}
+
+// The lanes one thread of a bisect row holds: lane i + p q for q < kLanes,
+// present where has[q] (so has[0] is false only on a thread past L).
+template <int kLanes>
+struct BisectLanes {
+  float z[kLanes], a[kLanes], m[kLanes];
+  bool has[kLanes];
+};
+
+// The thread's sum of f(q) over its lanes, in lane order: with one lane it
+// is that lane's value (0 without one).
+template <int kLanes, typename F>
+__device__ __forceinline__ float lanes_sum(const BisectLanes<kLanes>& x, F&& f) {
+  float t = x.has[0] ? f(0) : 0.0f;
+#pragma unroll
+  for (int q = 1; q < kLanes; ++q) t = x.has[q] ? __fadd_rn(t, f(q)) : t;
+  return t;
+}
+
 // g(tau) = sum_l clip(z_l - tau, 0, a_l) m_l over the row.
-template <typename Row>
-__device__ __forceinline__ float clipped_sum(float z, float a, float m, bool has_lane,
-                                             float tau, float* red, const Row& row) {
-  const float t = has_lane ? __fmul_rn(clip0(__fsub_rn(z, tau), a), m) : 0.0f;
+template <int kLanes, typename Row>
+__device__ __forceinline__ float clipped_sum(const BisectLanes<kLanes>& x, float tau, float* red,
+                                             const Row& row) {
+  const float t = lanes_sum(
+      x, [&](int q) { return __fmul_rn(clip0(__fsub_rn(x.z[q], tau), x.a[q]), x.m[q]); });
   return row_reduce<false>(t, red, row);
 }
 
 // The water level of this row (0 when the capacity does not bind) and
 // whether it binds. `red` holds one float per warp of the row.
-template <typename Row>
-__device__ float bisect_water_level(float z, float a, float m, bool has_lane, float c,
-                                    int iters, float* red, const Row& row,
-                                    bool* need) {
-  const float box = has_lane ? __fmul_rn(clip0(z, a), m) : 0.0f;
+template <int kLanes, typename Row>
+__device__ float bisect_water_level(const BisectLanes<kLanes>& x, float c, int iters, float* red,
+                                    const Row& row, bool* need) {
+  const float box = lanes_sum(x, [&](int q) { return __fmul_rn(clip0(x.z[q], x.a[q]), x.m[q]); });
   const float s_box = row_reduce<false>(box, red, row);
   *need = s_box > c;
   if (!*need) return 0.0f;  // the same branch in every thread of the row
 
-  const float n_act = fmaxf(row_reduce<false>(has_lane ? m : 0.0f, red, row), 1.0f);
+  const float n_act =
+      fmaxf(row_reduce<false>(lanes_sum(x, [&](int q) { return x.m[q]; }), red, row), 1.0f);
   float lo = fmaxf(__fdiv_rn(__fsub_rn(s_box, c), n_act), 0.0f);
-  const float zmax = row_reduce<true>(has_lane && m > 0.0f ? z : static_cast<float>(kNeg),
-                                      red, row);
+  float zmax = x.has[0] && x.m[0] > 0.0f ? x.z[0] : static_cast<float>(kNeg);
+#pragma unroll
+  for (int q = 1; q < kLanes; ++q) {
+    if (x.has[q] && x.m[q] > 0.0f) zmax = fmaxf(zmax, x.z[q]);
+  }
+  zmax = row_reduce<true>(zmax, red, row);
   float hi = fmaxf(zmax, lo);
   for (int it = 0; it < iters; ++it) {
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    const bool too_big = clipped_sum(z, a, m, has_lane, mid, red, row) > c;
+    const bool too_big = clipped_sum(x, mid, red, row) > c;
     lo = too_big ? mid : lo;
     hi = too_big ? hi : mid;
   }
-  const float glo = clipped_sum(z, a, m, has_lane, lo, red, row);
-  const float ghi = clipped_sum(z, a, m, has_lane, hi, red, row);
+  const float glo = clipped_sum(x, lo, red, row);
+  const float ghi = clipped_sum(x, hi, red, row);
   const float step = __fdiv_rn(__fmul_rn(__fsub_rn(glo, c), __fsub_rn(hi, lo)),
                                fmaxf(__fsub_rn(glo, ghi), 1e-30f));
   return fminf(fmaxf(__fadd_rn(lo, step), lo), hi);

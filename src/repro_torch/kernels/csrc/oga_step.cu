@@ -8,9 +8,11 @@
 // (proj_sortscan, _kernel).
 //
 // Layout: row n = cell (r, k) of the packed (N, L) layout, lanes = ports,
-// row_block rows per block. The sortscan kernels hold a row in W lanes of
-// a warp, E breakpoint slots per lane (sortscan.cuh: two rows per warp at
-// L <= 16); the bisect kernel in P = slots_for(L) threads, one lane each
+// row_block rows per block. The sortscan kernels hold a row of L <= 256
+// lanes in W lanes of a warp, E breakpoint slots per lane (sortscan.cuh:
+// two rows per warp at L <= 16), and a wider row in one block with its
+// slots in shared memory (the *_wide kernels, row_block 1); the bisect
+// kernel in min(P, 1024) threads, P = slots_for(L), up to four lanes each
 // (bisect.cuh). For each of its ports a thread computes
 //   g = f'(y m) - beta 1{k = k*_l}          (eq. 30, all seven kinds)
 //   z = y + eta x g m                       (Alg. 1 step 5)
@@ -105,7 +107,7 @@ oga_step_sortscan_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
-template <int kSync>
+template <int kSync, int kLanes>
 __global__ void oga_step_bisect_kernel(const float* __restrict__ y,
                                        const float* __restrict__ a,
                                        const float* __restrict__ mask,
@@ -117,20 +119,28 @@ __global__ void oga_step_bisect_kernel(const float* __restrict__ y,
   const auto g = row_group<kSync>(p);
   const long long row = row_index(g);
   if (row >= n) return;  // a whole row leaves: it waits at no barrier of another
-  const int i = g.i;
-  const bool has_lane = i < L;
-  const long long idx = row * L + i;
   const StepScalars s = step_scalars(scal, row);
-  float z = 0.0f, al = 0.0f, ml = 0.0f;
-  if (has_lane) {
-    al = a[idx];
-    ml = mask[idx];
-    z = ascend(s, y[idx], ml, x[idx], kstar[idx]);
+  BisectLanes<kLanes> lanes;
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q) {
+    const int l = g.i + p * q;
+    lanes.has[q] = l < L;
+    lanes.z[q] = lanes.a[q] = lanes.m[q] = 0.0f;
+    if (lanes.has[q]) {
+      const long long idx = row * L + l;
+      lanes.a[q] = a[idx];
+      lanes.m[q] = mask[idx];
+      lanes.z[q] = ascend(s, y[idx], lanes.m[q], x[idx], kstar[idx]);
+    }
   }
   bool need;
-  const float tau = bisect_water_level(z, al, ml, has_lane, s.c, iters,
-                                       bisect_row_smem(smem, g), g, &need);
-  if (has_lane) out[idx] = bisect_fill(z, al, ml, tau, need);
+  const float tau = bisect_water_level(lanes, s.c, iters, bisect_row_smem(smem, g), g, &need);
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q) {
+    if (lanes.has[q]) {
+      out[row * L + g.i + p * q] = bisect_fill(lanes.z[q], lanes.a[q], lanes.m[q], tau, need);
+    }
+  }
 }
 
 template <int W, int E>
@@ -160,6 +170,58 @@ proj_sortscan_kernel(const float* __restrict__ z, const float* __restrict__ a,
   }
 }
 
+// One block a row of kWideL < L <= kMaxL lanes (sortscan.cuh,
+// wide_water_level): the fused step and the projection. A port is read
+// (and its ascent computed) each time the water level asks for it, the
+// same bits every time.
+__global__ void __launch_bounds__(kWideThreads)
+oga_step_sortscan_wide_kernel(const float* __restrict__ y, const float* __restrict__ a,
+                              const float* __restrict__ mask, const float* __restrict__ x,
+                              const float* __restrict__ kstar, const float* __restrict__ scal,
+                              float* __restrict__ out, int L) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const long long row = blockIdx.x;
+  const StepScalars s = step_scalars(scal, row);
+  const auto port = [&](int l) {
+    const long long idx = row * L + l;
+    const float m = mask[idx];
+    return WidePort{ascend(s, y[idx], m, x[idx], kstar[idx]), a[idx], m};
+  };
+  bool need;
+  const double tau = wide_water_level(port, s.c, L, wide_smem, &need);
+  for (int l = threadIdx.x; l < L; l += kWideThreads) {
+    const WidePort p = port(l);
+    out[row * L + l] = water_fill(p.z, p.a, p.m, tau, need);
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+proj_sortscan_wide_kernel(const float* __restrict__ z, const float* __restrict__ a,
+                          const float* __restrict__ mask, const float* __restrict__ c,
+                          float* __restrict__ out, int L) {
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const long long row = blockIdx.x;
+  const auto port = [&](int l) {
+    const long long idx = row * L + l;
+    return WidePort{z[idx], a[idx], mask[idx]};
+  };
+  bool need;
+  const double tau = wide_water_level(port, c[row], L, wide_smem, &need);
+  for (int l = threadIdx.x; l < L; l += kWideThreads) {
+    const WidePort p = port(l);
+    out[row * L + l] = water_fill(p.z, p.a, p.m, tau, need);
+  }
+}
+
+// The dynamic shared memory of a wide launch, opting in above the default
+// 48 KiB; the CUDA error of the attribute call (0 when accepted).
+template <typename Kernel>
+cudaError_t allow_wide_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= kSmemBudget) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // An empty kernel: chip_smoke.py times it on a launch's grid as the floor
 // under that launch.
 __global__ void empty_kernel() {}
@@ -168,8 +230,9 @@ __global__ void empty_kernel() {}
 
 // Plain C interface, loaded with ctypes by kernels/_launch.py. Each returns
 // the CUDA error of the launch (0 when it was accepted). `threads` is the
-// threads of one row (kernels/autotune.py row_threads): W for sortscan,
-// P for bisect; `row_block` the rows per block.
+// threads of one row (kernels/autotune.py row_threads): W for sortscan
+// (kWideThreads for a wide row), min(P, 1024) for bisect; `row_block` the
+// rows per block.
 extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
                               const float* x, const float* kstar, const float* scal,
                               float* out, int n, int L, int threads, int row_block,
@@ -181,6 +244,14 @@ extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
     if (!legal_sortscan_launch(n, L, threads, row_block)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (L > kWideL) {
+      const size_t smem = wide_smem_bytes(L);
+      const cudaError_t err = allow_wide_smem(oga_step_sortscan_wide_kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      oga_step_sortscan_wide_kernel<<<n, kWideThreads, smem, st>>>(y, a, mask, x, kstar, scal,
+                                                                   out, L);
+      return static_cast<int>(cudaGetLastError());
+    }
     with_sortscan_layout(L, [&](auto w, auto e) {
       constexpr int W = decltype(w)::value, E = decltype(e)::value;
       oga_step_sortscan_kernel<W, E><<<blocks, sortscan_block_threads(W, row_block), 0, st>>>(
@@ -190,8 +261,8 @@ extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
     if (!legal_bisect_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    with_sync_mode(threads, row_block, [&](auto sync) {
-      oga_step_bisect_kernel<decltype(sync)::value>
+    with_bisect_layout(L, threads, row_block, [&](auto sync, auto lanes) {
+      oga_step_bisect_kernel<decltype(sync)::value, decltype(lanes)::value>
           <<<blocks, row_block * threads, row_block * bisect_smem_bytes(threads), st>>>(
               y, a, mask, x, kstar, scal, out, n, L, threads, iters);
     });
@@ -207,6 +278,14 @@ extern "C" int repro_proj_sortscan(const float* z, const float* a, const float* 
   using namespace repro_torch;
   if (!legal_sortscan_launch(n, L, threads, row_block)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (L > kWideL) {
+    const size_t smem = wide_smem_bytes(L);
+    const cudaError_t err = allow_wide_smem(proj_sortscan_wide_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    proj_sortscan_wide_kernel<<<n, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        z, a, mask, c, out, L);
+    return static_cast<int>(cudaGetLastError());
   }
   with_sortscan_layout(L, [&](auto w, auto e) {
     constexpr int W = decltype(w)::value, E = decltype(e)::value;

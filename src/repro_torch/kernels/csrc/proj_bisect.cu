@@ -7,8 +7,8 @@
 // and the output of one type); the water level is solved in float32
 // either way, and a bf16 output is rounded to nearest even once, at the
 // store. Layout as in oga_step.cu's bisect kernel: row_block rows of
-// P = slots_for(L) threads per block, each row synchronising on its own
-// (bisect.cuh).
+// bisect_threads(L) threads per block, up to four lanes a thread, each row
+// synchronising on its own (bisect.cuh).
 //
 // Bound on the H100: bytes, 4 N (4L + 1): 0.038 us at (768, 10) and
 // 2.94 us at (6144, 100) at 3.35 TB/s. Per row (iters + 4) reductions of
@@ -27,7 +27,7 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfl
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-template <typename T, int kSync>
+template <typename T, int kSync, int kLanes>
 __global__ void proj_bisect_kernel(const T* __restrict__ z,
                                    const T* __restrict__ a,
                                    const T* __restrict__ mask,
@@ -37,16 +37,26 @@ __global__ void proj_bisect_kernel(const T* __restrict__ z,
   const auto g = row_group<kSync>(p);
   const long long row = row_index(g);
   if (row >= n) return;  // a whole row leaves: it waits at no barrier of another
-  const bool has_lane = g.i < L;
-  const long long idx = row * L + g.i;
-  const float zl = has_lane ? load_f32(z + idx) : 0.0f;
-  const float al = has_lane ? load_f32(a + idx) : 0.0f;
-  const float ml = has_lane ? load_f32(mask + idx) : 0.0f;
+  BisectLanes<kLanes> lanes;
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q) {
+    const int l = g.i + p * q;
+    const long long idx = row * L + l;
+    lanes.has[q] = l < L;
+    lanes.z[q] = lanes.has[q] ? load_f32(z + idx) : 0.0f;
+    lanes.a[q] = lanes.has[q] ? load_f32(a + idx) : 0.0f;
+    lanes.m[q] = lanes.has[q] ? load_f32(mask + idx) : 0.0f;
+  }
   float* red = bisect_row_smem(smem, g);
   bool need;
-  const float tau = bisect_water_level(zl, al, ml, has_lane, load_f32(c + row), iters, red, g,
-                                       &need);
-  if (has_lane) store_as(out + idx, bisect_fill(zl, al, ml, tau, need));
+  const float tau = bisect_water_level(lanes, load_f32(c + row), iters, red, g, &need);
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q) {
+    if (lanes.has[q]) {
+      store_as(out + row * L + g.i + p * q,
+               bisect_fill(lanes.z[q], lanes.a[q], lanes.m[q], tau, need));
+    }
+  }
 }
 
 template <typename T>
@@ -55,8 +65,8 @@ int launch_proj_bisect(const T* z, const T* a, const T* mask, const T* c, T* out
   if (!legal_bisect_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  with_sync_mode(threads, row_block, [&](auto sync) {
-    proj_bisect_kernel<T, decltype(sync)::value>
+  with_bisect_layout(L, threads, row_block, [&](auto sync, auto lanes) {
+    proj_bisect_kernel<T, decltype(sync)::value, decltype(lanes)::value>
         <<<(n + row_block - 1) / row_block, row_block * threads,
            row_block * bisect_smem_bytes(threads), static_cast<cudaStream_t>(stream)>>>(
             z, a, mask, c, out, n, L, threads, iters);

@@ -8,11 +8,13 @@
 // and each lane holds E = P / W slots in registers:
 //   L <= 16        W = 16, E = 2: two rows per warp; lane j owns port j's
 //                  two breakpoints z - a and z, the rest is padding;
-//   16 < L <= 512  W = 32, E = P / 32 (E = 8 at L = 100).
+//   16 < L <= 256  W = 32, E = P / 32 (E = 8 at L = 100, 16 at L = 256).
 // Lane j of a row holds ports j + W q, q < E / 2, loaded coalesced from
 // the row's contiguous (L,) slice. A thread block holds row_block rows in
 // whole warps (kernels/autotune.py: rows_per_warp, slots_per_lane and
-// legal_row_block mirror the formulas here).
+// legal_row_block mirror the formulas here). Rows of 256 < L <= 4096
+// lanes take one block a row instead (wide_water_level, at the end of this
+// file): their slots would not fit a warp's registers.
 //
 // g(tau) = sum_l m_l clip(z_l - tau, 0, a_l) falls from sum_l a_l m_l to 0
 // with breakpoints at every z_l - a_l and z_l. Both designs below compute
@@ -74,9 +76,14 @@ constexpr double kNeg = -1e30;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxL = kMaxThreads / 2;
+// The widest row the kernels take (kernels/autotune.py MAX_L).
+constexpr int kMaxL = 4096;
 // Rows of at most kNarrowL lanes take half a warp each.
 constexpr int kNarrowL = 16;
+// Rows of more than kWideL lanes take one block of kWideThreads threads
+// each, with the row's slots in shared memory (wide_water_level).
+constexpr int kWideL = 256;
+constexpr int kWideThreads = 512;
 // Threads of a sortscan block: ptxas may give each up to 128 registers.
 constexpr int kSortscanMaxThreads = 512;
 
@@ -163,9 +170,10 @@ __host__ __device__ constexpr int slots_for(int L) {
   return p;
 }
 
-// Lanes of a warp that hold one sortscan row.
+// Threads that hold one sortscan row: lanes of a warp, or a whole block
+// for a wide row.
 __host__ __device__ constexpr int sortscan_lanes(int L) {
-  return L <= kNarrowL ? kWarp / 2 : kWarp;
+  return L <= kNarrowL ? kWarp / 2 : L <= kWideL ? kWarp : kWideThreads;
 }
 
 // Threads of a block of row_block sortscan rows of `lanes` lanes: whole
@@ -174,15 +182,17 @@ __host__ __device__ constexpr int sortscan_block_threads(int lanes, int row_bloc
   return (row_block * lanes + kWarp - 1) / kWarp * kWarp;
 }
 
-// kernels/autotune.py legal_row_block(method="sortscan") is the same test.
+// kernels/autotune.py legal_row_block(method="sortscan") is the same test;
+// a wide row's block holds kWideThreads threads, so its row block is 1.
 inline bool legal_sortscan_launch(int n, int L, int lanes, int row_block) {
   return n > 0 && L >= 1 && L <= kMaxL && lanes == sortscan_lanes(L) && row_block >= 1 &&
          (row_block & (row_block - 1)) == 0 &&
          sortscan_block_threads(lanes, row_block) <= kSortscanMaxThreads;
 }
 
-// Calls f(integral_constant<W>, integral_constant<E>) with the layout of
-// rows of L lanes, so each entry launches the instantiation for it.
+// Calls f(integral_constant<W>, integral_constant<E>) with the register
+// layout of rows of L <= kWideL lanes, so each entry launches the
+// instantiation for it.
 template <typename F>
 void with_sortscan_layout(int L, F&& f) {
   using std::integral_constant;
@@ -191,8 +201,7 @@ void with_sortscan_layout(int L, F&& f) {
     case 2: return f(integral_constant<int, kWarp>{}, integral_constant<int, 2>{});
     case 4: return f(integral_constant<int, kWarp>{}, integral_constant<int, 4>{});
     case 8: return f(integral_constant<int, kWarp>{}, integral_constant<int, 8>{});
-    case 16: return f(integral_constant<int, kWarp>{}, integral_constant<int, 16>{});
-    default: return f(integral_constant<int, kWarp>{}, integral_constant<int, 32>{});
+    default: return f(integral_constant<int, kWarp>{}, integral_constant<int, 16>{});
   }
 }
 
@@ -413,6 +422,160 @@ __device__ __forceinline__ float water_fill(float z, float a, float m, double ta
                                             bool need) {
   if (!need) return clip0(z, a) * m;
   return static_cast<float>(__dmul_rn(clamp0(static_cast<double>(z) - tau, a), m));
+}
+
+// ------------------------------------------------------------- wide rows --
+// A row of kWideL < L <= kMaxL lanes is one block of kWideThreads threads.
+// Thread t reads ports t + kWideThreads q, and the row's P = slots_for(L)
+// breakpoint slots (1024 to 8192) live in shared memory: slot l holds port l's z - a (delta +m), slot P / 2 + l
+// its z (-m), the rest -1e30 with delta 0. The same steps as
+// sortscan_water_level, with block barriers in place of shuffles:
+//   a bitonic sort of (value, delta) pairs, every sub-step P / 2
+//   compare-exchanges spread over the threads (ties never swapped);
+//   two scans, each thread owning a contiguous chunk of P / kWideThreads
+//   slots: a serial pass over the chunk, a block scan of the chunk totals
+//   (shuffles in a warp, the warps' totals through shared memory), and the
+//   chunk's exclusive prefix added back;
+//   lo a block max; g(lo), the slope and tau as in sortscan_water_level.
+// Shared memory: P doubles and P floats for the slots, and kWideWarps
+// doubles for the block reductions: 96.3 KiB at L = 4096, above the 48 KiB
+// a block gets without the opt-in attribute (the entries set it). Every
+// thread of the block must call wide_water_level (it synchronises).
+constexpr int kWideWarps = kWideThreads / kWarp;
+
+__host__ __device__ constexpr size_t wide_smem_bytes(int L) {
+  return static_cast<size_t>(slots_for(L)) * (sizeof(double) + sizeof(float)) +
+         kWideWarps * sizeof(double);
+}
+
+// Sum over the block: every thread gets the same bits (each warp reduces
+// the same kWideWarps totals with the same butterfly).
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  v = group_sum<kWarp>(v);
+  __syncthreads();  // an earlier reduction may still read red
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  return group_sum<kWarp>(lane < kWideWarps ? red[lane] : 0.0);
+}
+
+__device__ __forceinline__ double block_max(double v, double* red) {
+  const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  v = group_max<kWarp>(v);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  return group_max<kWarp>(lane < kWideWarps ? red[lane] : kNeg);
+}
+
+// The sum of v over the threads before this one (thread order).
+__device__ __forceinline__ double block_exclusive_scan(double v, double* red) {
+  const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  double inc = v;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const double t = __shfl_up_sync(kFullMask, inc, o);
+    if (lane >= o) inc += t;
+  }
+  const double up = __shfl_up_sync(kFullMask, inc, 1);
+  __syncthreads();
+  if (lane == kWarp - 1) red[w] = inc;
+  __syncthreads();
+  double before = 0.0;
+  for (int i = 0; i < w; ++i) before += red[i];
+  return lane > 0 ? before + up : before;
+}
+
+// A port of a wide row as the kernel reads it: z, cap a and mask m.
+struct WidePort {
+  float z, a, m;
+};
+
+// The water level of the block's row (0 when the capacity does not bind)
+// and whether it binds. port(l) gives port l < L; thread t reads ports
+// t + kWideThreads q before the sort and again after it, so no port stays
+// in registers across the sort.
+template <typename F>
+__device__ __forceinline__ double wide_water_level(F&& port, float cf, int L, void* smem,
+                                                   bool* need) {
+  const int t = threadIdx.x;
+  const int P = slots_for(L), half = P / 2;
+  double* sv = static_cast<double*>(smem);
+  float* sd = reinterpret_cast<float*>(sv + P);
+  double* red = reinterpret_cast<double*>(sd + P);
+  const double c = cf;
+  double box = 0.0, g0 = 0.0;
+  for (int l = t; l < half; l += kWideThreads) {
+    // slots l and half + l hold port l's breakpoints, or padding
+    const bool has = l < L;
+    const WidePort p = has ? port(l) : WidePort{0.0f, 0.0f, 0.0f};
+    if (has) {
+      box += __dmul_rn(clamp0(static_cast<double>(p.z), static_cast<double>(p.a)), p.m);
+      g0 += __dmul_rn(p.a, p.m);
+    }
+    sv[l] = has ? static_cast<double>(p.z) - p.a : kNeg;
+    sd[l] = has ? p.m : 0.0f;
+    sv[half + l] = has ? static_cast<double>(p.z) : kNeg;
+    sd[half + l] = has ? -p.m : 0.0f;
+  }
+  *need = block_sum(box, red) > c;
+  if (!*need) return 0.0;  // the same branch in every thread of the block
+  // bitonic sort, ascending: pair i of a sub-step (K, S) is slots
+  // lo = 2 i - (i mod S) and lo + S, ascending when lo & K == 0
+  for (int K = 2; K <= P; K <<= 1) {
+    for (int S = K >> 1; S > 0; S >>= 1) {
+      for (int i = t; i < half; i += kWideThreads) {
+        const int lo = 2 * i - (i & (S - 1)), hi = lo + S;
+        double ve = sv[lo], vf = sv[hi];
+        float de = sd[lo], df = sd[hi];
+        exchange(ve, de, vf, df, (lo & K) == 0);
+        sv[lo] = ve;
+        sd[lo] = de;
+        sv[hi] = vf;
+        sd[hi] = df;
+      }
+      __syncthreads();
+    }
+  }
+
+  // n_seg and g(v_0) - g(v_s) by scans over each thread's chunk of C slots
+  const int C = P / kWideThreads, s0 = t * C;
+  double n_tot = 0.0;
+  for (int e = 0; e < C; ++e) n_tot += sd[s0 + e];
+  const double n_before = block_exclusive_scan(n_tot, red);
+  double n_loc = 0.0, drop_tot = 0.0;
+  for (int e = 0; e < C; ++e) {
+    const int s = s0 + e;
+    const double n_prev = e > 0 ? n_loc + n_before : n_before;
+    const double v_prev = s > 0 ? sv[s - 1] : sv[0];
+    drop_tot += __dmul_rn(n_prev, sv[s] - v_prev);  // pads: 0 * width
+    n_loc += sd[s];
+  }
+  const double drop_before = block_exclusive_scan(drop_tot, red);
+  g0 = block_sum(g0, red);
+  double best = kNeg, drop_loc = 0.0;
+  n_loc = 0.0;
+  for (int e = 0; e < C; ++e) {
+    const int s = s0 + e;
+    const double n_prev = e > 0 ? n_loc + n_before : n_before;
+    const double v_prev = s > 0 ? sv[s - 1] : sv[0];
+    drop_loc += __dmul_rn(n_prev, sv[s] - v_prev);
+    n_loc += sd[s];
+    best = g0 - (drop_loc + drop_before) >= c ? dmax(best, sv[s]) : best;
+  }
+  const double lo = block_max(best, red);
+
+  double glo = 0.0, slope = 0.0;
+  for (int l = t; l < L; l += kWideThreads) {
+    const WidePort p = port(l);
+    const double z = p.z, a = p.a, m = p.m;
+    glo += __dmul_rn(clamp0(z - lo, a), m);
+    slope += (z - a <= lo && z > lo) ? m : 0.0;
+  }
+  glo = block_sum(glo, red);
+  slope = block_sum(slope, red);
+  const double tau = slope > 0.5 ? lo + (glo - c) / dmax(slope, 1.0) : lo;
+  return dmax(tau, 0.0);
 }
 
 }  // namespace repro_torch

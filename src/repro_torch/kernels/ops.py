@@ -169,7 +169,7 @@ def oga_update_batch(spec, y, x, eta, *, operands=None, tiling=None):
     )
     y_rows = pack_rows(y).reshape(G * N, L)
     kstar_rows = _kstar_rows(spec, y).reshape(G * N, L)
-    x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L)
+    x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L).contiguous()
     eta_rows = eta.to(scal_static.dtype)[:, None].expand(G, N).reshape(G * N)
     rows = _dispatch_fused(
         y_rows, a_rows, mask_rows, x_rows, kstar_rows,

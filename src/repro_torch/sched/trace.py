@@ -50,10 +50,22 @@ JOB_TEMPLATES = np.array(
 
 @dataclasses.dataclass(frozen=True)
 class FaultConfig:
-    """Seeded fault-event process of a trace: failures, scheduled drains and
-    contention shocks (the reference's fields and defaults). Faults act in
-    lifecycle mode only, which the port does not have yet; the default is
-    fault-free and ``active`` is False."""
+    """Seeded fault-event process of a trace (the reference's fields and
+    defaults): three per-resource event families that compose
+    multiplicatively into the (T, K) capacity multipliers of
+    ``build_faults``, read by the job lifecycle only.
+
+    * failures: a failure starts with probability ``fail_rate`` per slot
+      and resource, removes ``fail_frac`` of the capacity and repairs after
+      a geometric number of slots of mean ``repair_mean``; d overlapping
+      failures leave ``(1 - fail_frac)**d``.
+    * drains: every ``drain_period`` slots (a seeded phase per resource)
+      the resource loses ``drain_frac`` for ``drain_len`` slots; 0 is off.
+    * shocks: with probability ``shock_rate`` a slot starts ``shock_len``
+      slots at ``shock_depth`` of the capacity.
+
+    The default is fault-free: ``active`` is False and ``build_faults``
+    returns ones."""
 
     fail_rate: float = 0.0      # P[failure event starts] per slot, resource
     fail_frac: float = 0.25     # capacity fraction lost per failure event
@@ -189,10 +201,53 @@ def build_works(cfg: TraceConfig, device: DeviceLike = None) -> torch.Tensor:
     return _to(w, np.float32, dev)
 
 
+def build_faults(cfg: TraceConfig, device: DeviceLike = None) -> torch.Tensor:
+    """(T, K) float32 capacity multipliers in [0, 1] of the seeded
+    fault-event process (``FaultConfig``): the lifecycle runs slot t
+    against ``c * mult[t]``. The reference's draw order, each family drawn
+    only when it can fire: failure starts, failure durations, drain
+    phases, shock starts; so the bits are the reference's. A fault-free
+    config draws nothing and returns ones."""
+    dev = resolve_device(device)
+    fc = cfg.faults
+    T, K = cfg.T, cfg.K
+    if not fc.active:
+        return _to(np.ones((T, K)), np.float32, dev)
+    rng = stream_rng(cfg.seed, "faults")
+    mult = np.ones((T, K))
+    if fc.fail_rate > 0.0:
+        starts = rng.uniform(size=(T, K)) < fc.fail_rate
+        dur = rng.geometric(1.0 / max(fc.repair_mean, 1.0), size=(T, K))
+        t_idx, k_idx = np.nonzero(starts)
+        ends = np.minimum(t_idx + dur[t_idx, k_idx], T)
+        # concurrent failures per (t, k): a difference array and a cumsum
+        depth = np.zeros((T + 1, K))
+        np.add.at(depth, (t_idx, k_idx), 1.0)
+        np.add.at(depth, (ends, k_idx), -1.0)
+        mult = mult * (1.0 - fc.fail_frac) ** np.cumsum(depth[:T], axis=0)
+    if fc.drain_period > 0:
+        phase = rng.integers(0, fc.drain_period, size=K)
+        t = np.arange(T)[:, None]
+        draining = (t + phase[None, :]) % fc.drain_period < fc.drain_len
+        mult = np.where(draining, mult * (1.0 - fc.drain_frac), mult)
+    if fc.shock_rate > 0.0:
+        s_starts = rng.uniform(size=(T, K)) < fc.shock_rate
+        cum = np.cumsum(s_starts, axis=0)
+        in_shock = (cum - np.pad(cum, ((fc.shock_len, 0), (0, 0)))[:T]) > 0
+        mult = np.where(in_shock, mult * fc.shock_depth, mult)
+    return _to(np.clip(mult, 0.0, 1.0), np.float32, dev)
+
+
 def make(cfg: TraceConfig, device: DeviceLike = None):
     """(spec, arrivals) of one config on ``device`` (None: the CUDA card)."""
     dev = resolve_device(device)
     return build_spec(cfg, dev), build_arrivals(cfg, device=dev)
+
+
+def make_lifecycle(cfg: TraceConfig, device: DeviceLike = None):
+    """(spec, arrivals, works) of one config, for lifecycle-mode runs."""
+    dev = resolve_device(device)
+    return build_spec(cfg, dev), build_arrivals(cfg, device=dev), build_works(cfg, dev)
 
 
 TRACE_BACKENDS = ("host",)
@@ -210,14 +265,15 @@ def check_batch_cfgs(cfgs) -> list:
 
 
 def make_batch(cfgs, with_works: bool = False, trace_backend: str = "host",
-               device: DeviceLike = None):
-    """Stacked traces of a batch of configs: (spec, arrivals, works) with a
-    leading (G,) axis on every field; ``works`` is None unless requested.
+               device: DeviceLike = None, with_faults: bool = False):
+    """Stacked traces of a batch of configs: (spec, arrivals, works, faults)
+    with a leading (G,) axis on every field; ``works`` and ``faults`` are
+    None unless requested (fault-free configs contribute rows of ones).
 
     Only the host numpy path is ported (``trace_backend="host"``): one
-    ``build_spec``/``build_arrivals``/``build_works`` per config, stacked,
-    equal to ``make`` config by config. The reference's device-side
-    generation is ROADMAP Queue 1, item 13.
+    ``build_spec``/``build_arrivals``/``build_works``/``build_faults`` per
+    config, stacked, equal to ``make`` config by config. The reference's
+    device-side generation is ROADMAP Queue 1, item 14.
     """
     cfgs = check_batch_cfgs(cfgs)
     if trace_backend not in TRACE_BACKENDS:
@@ -228,4 +284,5 @@ def make_batch(cfgs, with_works: bool = False, trace_backend: str = "host",
     spec = ClusterSpec.stack([build_spec(c, dev) for c in cfgs])
     arrivals = torch.stack([build_arrivals(c, device=dev) for c in cfgs])
     works = torch.stack([build_works(c, dev) for c in cfgs]) if with_works else None
-    return spec, arrivals, works
+    faults = torch.stack([build_faults(c, dev) for c in cfgs]) if with_faults else None
+    return spec, arrivals, works, faults

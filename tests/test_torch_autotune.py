@@ -105,7 +105,9 @@ def test_candidates_are_legal_on_hopper(n, L):
         for c in cands:
             threads = autotune.block_threads(c.row_block, L, method)
             assert threads % autotune.WARP == 0 and threads <= limit
-            if method == "sortscan":
+            if method == "sortscan" and L > autotune.WIDE_L:
+                assert threads == autotune.WIDE_THREADS   # one block a row
+            elif method == "sortscan":
                 assert threads == -(-c.row_block // autotune.rows_per_warp(L)) * autotune.WARP
             else:
                 assert threads == c.row_block * pb
@@ -125,7 +127,8 @@ def test_candidate_row_blocks_at_the_main_path_widths():
     assert rbs(49152, 10) == [1, 2, 4, 8, 16, 32]
     assert rbs(6144, 100) == [1, 2, 4, 8, 16]       # one warp a row, 512 threads
     assert rbs(3, 10) == [1, 2, 4]
-    assert rbs(64, autotune.MAX_L) == [1, 2, 4, 8, 16]
+    assert rbs(64, autotune.WIDE_L) == [1, 2, 4, 8, 16]
+    assert rbs(64, autotune.MAX_L) == [1]            # one block a row
     assert rbs(768, 10, "bisect") == [1, 2, 4, 8, 16, 32]
     assert rbs(6144, 100, "bisect") == [1, 2, 4]    # 256 threads a row
     assert rbs(64, autotune.MAX_L, "bisect") == [1]
@@ -137,7 +140,9 @@ def test_candidate_row_blocks_at_the_main_path_widths():
     (64, 10, "sortscan", False),    # not in ROW_BLOCKS
     (16, 100, "sortscan", True),    # 16 one-warp rows: 512 threads
     (32, 100, "sortscan", False),   # 1024 threads > SORTSCAN_MAX_THREADS
-    (16, 512, "sortscan", True),
+    (16, 256, "sortscan", True),
+    (1, 512, "sortscan", True),     # a wide row: one block of 512 threads
+    (2, 512, "sortscan", False),
     (3, 10, "sortscan", False),     # not a power of two
     (0, 10, "sortscan", False),
     (32, 10, "bisect", True),       # 32 rows of 32 threads: 1024
@@ -345,7 +350,7 @@ def test_dispatch_forces_sortscan_even_if_cache_says_bisect(monkeypatch):
 
 
 @pytest.mark.parametrize("L,tuned,want", [(100, 8, 4), (100, 2, 2), (10, 32, 32),
-                                           (autotune.MAX_L, 16, 1)])
+                                           (autotune.WIDE_L, 16, 2)])
 def test_dispatch_fits_a_sortscan_row_block_to_bisect(monkeypatch, L, tuned, want):
     """A sortscan winner of the "proj" table may be a row block the bisect
     layout refuses (P threads a row): dispatch runs the bisection at the

@@ -11,7 +11,12 @@ bisection result (the reference's bar for its bisect kernel: the bracket
 width / 2^iters); none across row blocks, where the outputs are equal bit
 for bit, nor between the sortscan kernels and the float64 emulation of
 their register network (tests/_sortscan_network.py), which must agree bit
-for bit. bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
+for bit. Rows wider than 256 lanes (one block a row, slots in shared
+memory) at 1e-6 against the float64 oracle on every row, 2e-6 against the
+plain version and the fused step at 1e-5 against its plain version, both
+run on CPU copies of the inputs; rows of zero capacity or of z = 0 come
+back exactly 0.
+bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
 |y| < 4; both solve in float32 and round once). Flash attention against
 its plain version: 2e-5 in float32 (the scalar kernel; the reference's
 bar; the kernel sums in another order); in bf16 (the tensor-core kernel)
@@ -22,7 +27,10 @@ both round the output once (a flip is one ulp <= 2^-7 |o|); 0.05 is the
 reference's bf16 bar (tests/test_torch_flash_numerics.py holds the
 derivation on the CPU); the LM on the
 card against the CPU in float32: 1e-3 on logits (float32 matmuls in
-another order, two layers deep, logits of size ~1-30).
+another order, two layers deep, logits of size ~1-30). The job lifecycle
+on the card against the same run on the CPU: events exactly, rewards and
+occupancy within 1e-4 of their largest (the card's projection solves in
+double, the CPU's in float32).
 """
 import numpy as np
 import pytest
@@ -37,7 +45,7 @@ from repro_torch.kernels import oga_step as toga
 from repro_torch.kernels import proj_bisect as tpb
 from repro_torch.kernels import sortscan as tss
 from repro_torch.models import model as TM
-from repro_torch.sched import sweep, trace
+from repro_torch.sched import lifecycle, sweep, trace
 
 BISECT_ATOL = 5e-5
 
@@ -225,7 +233,7 @@ def test_wrappers_reject_tilings_the_kernels_do_not_take(dev):
     assert tss.proj_sortscan(z, z, z, torch.ones(4, device=dev), row_block=16).shape == (4, 100)
 
 
-@pytest.mark.parametrize("L", [1, 2, 7, 10, 16, 17, 32, 33, 100, 512])
+@pytest.mark.parametrize("L", [1, 2, 7, 10, 16, 17, 32, 33, 100, 256])
 def test_sortscan_kernels_give_the_network_bits(dev, L):
     """The register network against its float64 numpy emulation
     (tests/_sortscan_network.py), bit for bit, and against the float64
@@ -249,6 +257,54 @@ def test_sortscan_kernels_give_the_network_bits(dev, L):
                                    atol=2e-6, rtol=0)
         step = toga.oga_step_fused(*sargs, row_block=rb)
         torch.testing.assert_close(step, ref.oga_step_ref(*sargs), atol=1e-5, rtol=0)
+
+
+WIDE_LS = [257, 300, 512, 1000, 4096]
+
+
+def _wide_proj_args(rng, N, L):
+    """``_proj_args`` with rows of zero capacity and rows of z = 0."""
+    z, a, m, c = _proj_args(rng, N, L)
+    c[1:N:7] = 0.0
+    z[2:N:7] = 0.0
+    return z, a, m, c
+
+
+@pytest.mark.parametrize("L", WIDE_LS)
+def test_wide_rows_match_oracle_and_plain(dev, L):
+    """One block a row: the projection against the float64 oracle on every
+    row and the plain version, the fused step against its plain version,
+    both bisect kernels against theirs; zero-capacity and all-zero rows
+    come back as exact zeros from both sortscan kernels."""
+    N = 96
+    z, a, m, c = _wide_proj_args(_rng(16, L), N, L)
+    pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    assert autotune.row_threads(L) == autotune.WIDE_THREADS
+    assert [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L)] == [1]
+    before = tss.proj_sortscan.launches
+    got = ops.proj_sortscan(*pargs)
+    torch.cuda.synchronize()
+    assert tss.proj_sortscan.launches == before + 1
+    y = got.cpu().numpy()
+    np.testing.assert_allclose(y, ref.proj_rows_exact_np(z, a, m, c), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(y, ref.proj_rows_sorted(*map(torch.from_numpy, (z, a, m, c))),
+                               atol=2e-6, rtol=0)
+    assert (y[1:N:7] == 0.0).all() and (y[2:N:7] == 0.0).all()
+    sargs = _step_args(_rng(17, L), N, L, dev)
+    sargs[-1][1::7, 2] = 0.0          # zero capacity
+    step = ops.oga_step_fused(*sargs)
+    # the plain version on CPU copies: on the card its float32 sort and
+    # cumsum over 8192 slots lose ~1e-3 at L = 4096 on these rows (the
+    # kernel equals the float64 oracle there)
+    torch.testing.assert_close(step.cpu(), ref.oga_step_ref(*(t.cpu() for t in sargs)),
+                               atol=1e-5, rtol=0)
+    assert (step[1::7] == 0.0).all()
+    bis = ops.proj_bisect(*pargs)
+    torch.testing.assert_close(bis, ref.proj_rows_bisect(*pargs), atol=BISECT_ATOL, rtol=0)
+    _feasible(bis.cpu().numpy(), a, m, c)
+    pin = autotune.KernelConfig(1, "bisect", autotune.DEFAULT_BISECT_ITERS)
+    torch.testing.assert_close(ops.oga_step_fused(*sargs, tiling=pin),
+                               ref.oga_step_ref(*sargs, proj="bisect"), atol=BISECT_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("N,L,row_block", [(1, 10, 1), (3, 10, 2), (37, 10, 4), (33, 10, 32),
@@ -444,3 +500,29 @@ def test_lm_prefill_on_the_card_matches_cpu(dev, arch):
     assert tfa.flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
     torch.testing.assert_close(gcache["k"].cpu(), wcache["k"], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["ogasched", "fairness", "hesrpt"])
+def test_lifecycle_with_faults_on_the_card_matches_cpu(dev, name):
+    """50 slots of the faulted lifecycle: every allocation is one
+    proj_sortscan launch (24 a slot inside heSRPT), OGASCHED's update one
+    fused launch, and the card's events equal the CPU's."""
+    cfg = trace.TraceConfig(T=50, L=6, R=16, K=4, seed=0, work_mean=40.0,
+                            faults=trace.FaultConfig(fail_rate=0.05, fail_frac=0.5,
+                                                     repair_mean=10.0))
+    spec, arr, works = trace.make_lifecycle(cfg, device="cpu")
+    faults = trace.build_faults(cfg, device="cpu")
+    f0, p0 = toga.oga_step_fused.launches, tss.proj_sortscan.launches
+    got = lifecycle.run(spec, arr, works, name, faults=faults, device=dev)
+    torch.cuda.synchronize()
+    fused, proj = toga.oga_step_fused.launches - f0, tss.proj_sortscan.launches - p0
+    assert (fused, proj) == {"ogasched": (50, 50), "fairness": (0, 50), "hesrpt": (0, 24 * 50)}[name]
+    want = lifecycle.run(spec, arr, works, name, faults=faults, device="cpu")
+    for f in ("admitted", "departed", "evicted", "running", "q_depth", "rdropped"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("rewards", "used", "work_done", "jct"):
+        w = getattr(want, f)
+        torch.testing.assert_close(getattr(got, f).cpu(), w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+    c_t = spec.c[None] * faults[:, None, :]
+    assert (got.used.cpu() <= c_t * (1 + lifecycle.FEAS_TOL) + lifecycle.FEAS_TOL).all()

@@ -137,7 +137,8 @@ def test_row_layout_and_operands_match_reference():
 def test_launch_constants():
     assert autotune.slots_for(10) == autotune.WARP
     assert autotune.slots_for(100) == 256
-    assert autotune.slots_for(autotune.MAX_L) == autotune.MAX_THREADS
+    assert autotune.slots_for(autotune.MAX_L) == 2 * autotune.MAX_L
+    assert autotune.row_threads(autotune.MAX_L, "bisect") == autotune.MAX_THREADS
     with pytest.raises(ValueError):
         autotune.slots_for(autotune.MAX_L + 1)
 

@@ -89,11 +89,16 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
 
 
 def test_unported_paths_say_so():
+    """The job lifecycle and the size-aware baselines are ported now: they
+    run (tests/test_torch_lifecycle.py and test_torch_hesrpt.py hold them
+    to the reference); a fault stream in slot mode still raises."""
     cfg = ttrace.TraceConfig(T=4, L=3, R=4, K=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_all(cfg, mode="lifecycle", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.run_all(cfg, algorithms=("hesrpt",), device="cpu")
+    res = tsim.run_all(cfg, mode="lifecycle", device="cpu")
+    assert all(r.lifecycle is not None and r.rewards.shape == (4,) for r in res.values())
+    res = tsim.run_all(cfg, algorithms=("hesrpt", "multiclass"), device="cpu")
+    assert all(r.lifecycle is None and np.isfinite(r.rewards).all() for r in res.values())
+    with pytest.raises(ValueError, match="mode"):
+        tsim.run_all(cfg, mode="stream", device="cpu")
     with pytest.raises(ValueError):
         tsim.run_all(ttrace.TraceConfig(T=4, L=3, R=4, K=2,
                                         faults=ttrace.FaultConfig(fail_rate=0.1)),

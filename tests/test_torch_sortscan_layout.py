@@ -41,7 +41,7 @@ def _case(L, N=9):
 # ------------------------------------------------------------ layout --
 @pytest.mark.parametrize("L,rows_per_warp,lanes,slots", [
     (1, 2, 16, 2), (2, 2, 16, 2), (7, 2, 16, 2), (10, 2, 16, 2), (16, 2, 16, 2),
-    (17, 1, 32, 2), (32, 1, 32, 2), (33, 1, 32, 4), (100, 1, 32, 8), (512, 1, 32, 32),
+    (17, 1, 32, 2), (32, 1, 32, 2), (33, 1, 32, 4), (100, 1, 32, 8), (256, 1, 32, 16),
 ])
 def test_layout_functions(L, rows_per_warp, lanes, slots):
     assert autotune.rows_per_warp(L) == rows_per_warp
@@ -61,15 +61,46 @@ def test_layout_rejects_widths_outside_the_kernels(L):
             fn(L)
 
 
+@pytest.mark.parametrize("L,slots", [(257, 2), (300, 2), (512, 2), (513, 4), (1000, 4),
+                                     (2048, 8), (4096, 16)])
+def test_wide_rows_take_one_block(L, slots):
+    """Rows of WIDE_L < L <= MAX_L: one block of WIDE_THREADS threads, its
+    P = slots_for(L) slots in shared memory, P / WIDE_THREADS a thread; row
+    block 1 for both methods (a bisect row of min(P, 1024) threads, up to
+    BISECT_LANES lanes each), so the tuner has one candidate."""
+    assert autotune.MAX_L >= 4096 and autotune.WIDE_L == 256
+    assert autotune.lanes_per_row(L) == autotune.row_threads(L) == autotune.WIDE_THREADS
+    assert autotune.slots_per_lane(L) == slots
+    assert slots * autotune.WIDE_THREADS == autotune.slots_for(L) >= 2 * L
+    p = autotune.row_threads(L, "bisect")
+    assert p == min(autotune.slots_for(L), autotune.MAX_THREADS)
+    assert -(-L // p) <= autotune.BISECT_LANES
+    for method in autotune.PROJ_METHODS:
+        assert [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L, method)] == [1]
+    assert autotune.block_threads(1, L) == autotune.WIDE_THREADS
+    assert [c.row_block for c in autotune.candidates("oga_step", 96, L)] == [1]
+
+
+@pytest.mark.parametrize("L", [4097, 5000, 10 ** 6])
+def test_slots_for_names_its_limit(L):
+    """Above MAX_L every entry raises a ValueError naming the limit, as the
+    kernels' launch tests refuse the row."""
+    with pytest.raises(ValueError, match=f"MAX_L = {autotune.MAX_L}"):
+        autotune.slots_for(L)
+    with pytest.raises(ValueError, match=str(autotune.MAX_L)):
+        autotune.candidates("proj", 8, L)
+
+
 @pytest.mark.parametrize("row_block,L,threads", [
     (1, 10, 32), (2, 10, 32), (4, 10, 64), (32, 10, 512),
-    (1, 100, 32), (16, 100, 512), (1, 512, 32),
+    (1, 100, 32), (16, 100, 512), (1, 256, 32), (1, 512, 512),
 ])
 def test_sortscan_blocks_are_whole_warps(row_block, L, threads):
     """A sortscan block is counted in warps: two rows of L <= 16 share one,
     and a lone such row leaves the other half of its warp idle."""
     assert autotune.block_threads(row_block, L, "sortscan") == threads
-    assert autotune.block_threads(row_block, L, "bisect") == row_block * autotune.slots_for(L)
+    assert autotune.block_threads(row_block, L, "bisect") == row_block * min(
+        autotune.slots_for(L), autotune.MAX_THREADS)
 
 
 def test_layout_rejects_unknown_methods():

@@ -126,13 +126,14 @@ def test_tiling_pin_changes_nothing_on_the_cpu(batches, results, monkeypatch):
 
 
 def test_unported_and_invalid_grids_raise(grids):
+    """Lifecycle grids and size-aware slot grids are ported; a batch
+    without job sizes is refused for them."""
     _, tpoints = grids
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        tsweep.build_batch(tpoints, mode="lifecycle", device="cpu")
+    assert tsweep.build_batch(tpoints[:1], mode="lifecycle", device="cpu").works is not None
     batch = tsweep.build_batch(tpoints[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(ValueError, match="job sizes"):
         tsweep.run_grid(batch, mode="lifecycle")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="job sizes"):
         tsweep.run_grid(batch, ("hesrpt",))
     with pytest.raises(ValueError):
         tsweep.run_grid(batch, mode="stream")
@@ -142,3 +143,40 @@ def test_unported_and_invalid_grids_raise(grids):
         p.cfg, faults=ttrace.FaultConfig(fail_rate=0.1))) for p in tpoints[:1]]
     with pytest.raises(ValueError, match="lifecycle"):
         tsweep.build_batch(faulty, device="cpu")
+
+
+# ------------------------------------------------------------ lifecycle grid --
+LIFECYCLE_ALGORITHMS = ("ogasched", "fairness", "drf", "hesrpt", "multiclass")
+
+
+@pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faults"])
+def test_lifecycle_grid_equals_looped_run_all(faulted):
+    """``run_grid(mode="lifecycle")`` over 3 configs (one ``_step`` over the
+    grid a slot) against ``run_all(mode="lifecycle")`` config by config:
+    events exactly, rewards and metrics within RTOL (the grid's sums run
+    over a batch)."""
+    from repro_torch.sched import lifecycle as tl
+    from repro_torch.sched import simulator as tsim
+
+    fc = ttrace.FaultConfig(fail_rate=0.05, fail_frac=0.5, repair_mean=10.0) if faulted \
+        else ttrace.FaultConfig()
+    base = ttrace.TraceConfig(T=40, L=6, R=16, K=4, work_mean=40.0, faults=fc)
+    points = tsweep.make_grid(base, seeds=(0, 1, 2), eta0s=(25.0,))
+    batch = tsweep.build_batch(points, mode="lifecycle", device="cpu")
+    assert (batch.faults is not None) == faulted
+    traces = tsweep.run_grid(batch, LIFECYCLE_ALGORITHMS, mode="lifecycle")
+    summary = tsweep.summarize_lifecycle(traces, batch)
+    for g, p in enumerate(points):
+        single = tsim.run_all(p.cfg, algorithms=LIFECYCLE_ALGORITHMS, mode="lifecycle",
+                              device="cpu")
+        for name in LIFECYCLE_ALGORITHMS:
+            tr = traces[name][g]
+            np.testing.assert_allclose(tr.rewards.numpy(), single[name].rewards, rtol=RTOL,
+                                       atol=RTOL * float(np.abs(single[name].rewards).max()))
+            for key, want in single[name].lifecycle.items():
+                np.testing.assert_allclose(summary[f"{key}/{name}"][g], want, rtol=RTOL,
+                                           atol=RTOL, err_msg=f"{key}/{name}")
+        ref = tl.run(batch.spec[g], batch.arrivals[g], batch.works[g], "ogasched",
+                     faults=None if batch.faults is None else batch.faults[g], device="cpu")
+        for f in ("admitted", "departed", "evicted", "q_depth"):
+            assert torch.equal(getattr(traces["ogasched"][g], f), getattr(ref, f)), f

@@ -79,12 +79,13 @@ def test_make_batch_host_stacking_equals_reference():
     jspec, jarr, jworks, _ = jtrace.make_batch(
         [jtrace.TraceConfig(**kw) for kw in cfgs], with_works=True,
         trace_backend="host")
-    tspec, tarr, tworks = ttrace.make_batch(
+    tspec, tarr, tworks, tfaults = ttrace.make_batch(
         [ttrace.TraceConfig(**kw) for kw in cfgs], with_works=True, device="cpu")
     for want, got in zip(_np_spec(jspec), _np_spec(tspec)):
         np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tarr.numpy(), np.asarray(jarr))
     np.testing.assert_array_equal(tworks.numpy(), np.asarray(jworks))
+    assert tfaults is None
     # and config by config equal to make()
     for g, kw in enumerate(cfgs):
         spec, arr = ttrace.make(ttrace.TraceConfig(**kw), device="cpu")
