@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases, each printing one JSON line:
 
   build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh;
-           ptxas's report of every kernel, and for every sortscan
+           ptxas's report of every kernel (the float32 flash kernel's by
+           head dim: no spill at hd 128), and for every sortscan
            instantiation its registers, shared memory, stack and spills and
            its SASS count of barriers, shared- and local-memory ops and
            shuffles (none of the first three may appear; no spill at
@@ -34,14 +35,20 @@ Phases, each printing one JSON line:
            Fig. 2 configs, one fused launch per step.
   flash    both flash-attention kernels against their plain version: the
            reference tests' shapes (plus hd 80, windows, softcaps, S = 1,
-           S around one 128-row tile and a ragged 8191) in float32 (the
-           scalar kernel) and bf16 (the tensor-core kernel), and
-           gemma2-27b's prefill shape, global and with window 4096, in bf16
-           and in float32, with CUDA-event times, the bound, the
-           special-function floor of the softmax (sfu_floor_ms) and the
-           time of torch's scaled_dot_product_attention beside it; ptxas's
-           registers and spills of the bf16 kernel, and the count of
-           HGMMA and UTMALDG instructions in the built library.
+           S around one 128-row tile, a ragged 8191, and hd 16, 48 and 112)
+           in float32 (the FFMA kernel) and bf16 (the tensor-core kernel),
+           and gemma2-27b's prefill shape, global and with window 4096, in
+           bf16 and in float32, with CUDA-event times, the bound, the
+           special-function floor of the softmax (sfu_floor_ms, bf16), the
+           launch floor (float32: an empty kernel on its grid) and the time
+           of torch's scaled_dot_product_attention without the softcap
+           beside the kernel's on the same inputs (causal, and with the
+           window as a boolean mask), in both dtypes; ptxas's registers and
+           spills of both kernels, and the count of HGMMA and UTMALDG
+           instructions in the built library.
+  reduced_lm  model.prefill of reduced(gemma2-27b) and reduced(stablelm-3b)
+           as they are (float32, head dim 16) on the card against the same
+           call on the CPU, through the float32 kernel.
   lifecycle the job lifecycle at benchmarks/bench_lifecycle.py's
            configuration (L 10, R 128, K 6, T 2000, work_mean 1200, seed 0):
            OGASCHED, the four heuristics and MULTICLASS through
@@ -207,10 +214,32 @@ TANH_POLY_LIMIT = 0.6
 # which rounds its probabilities to bf16 too.
 FLASH_F32_ATOL = 2e-5
 FLASH_BF16_ATOL = 0.05
+# float32 SDPA against the float32 kernel without the softcap: SDPA's
+# float32 backends may round their products to TF32 (10 mantissa bits), so
+# this is the bf16 comparison's bar, a check for a dropped tile, not the
+# kernel's bar (the plain version holds it to FLASH_F32_ATOL).
+FLASH_F32_SDPA_ATOL = FLASH_BF16_ATOL
 FLASH_BF16_RTOL = 2.0 ** -6
 FLASH_BF16_NEAR0 = 1e-4
 FLASH_BF16_PROB = 2.0 ** -8
 FLASH_TIMING_REPS = 10
+# The flash phase's small cases, (B, S, H, G, hd), window, softcap, in both
+# dtypes: the reference tests' shapes, hd 80, windows, softcaps, S = 1, S
+# around one 128-row tile, a ragged 8191, and the head dims 16, 48 and 112
+# (GQA rep 1 to 8) with and without a window and a softcap, one ragged.
+FLASH_SMALL_CASES = [
+    ((1, 128, 4, 2, 64), None, None), ((2, 256, 4, 1, 64), None, None),
+    ((1, 256, 8, 8, 128), None, None), ((2, 512, 2, 1, 64), None, None),
+    ((1, 256, 4, 2, 80), None, None), ((1, 256, 4, 2, 64), 128, None),
+    ((1, 256, 4, 2, 64), None, 30.0), ((1, 256, 4, 2, 64), 128, 50.0),
+    ((1, 191, 4, 2, 128), 64, 50.0), ((3, 1, 8, 1, 64), None, 50.0),
+    ((1, 127, 4, 4, 128), None, None), ((1, 128, 4, 2, 128), 200, None),
+    ((2, 129, 16, 2, 128), 16, 50.0), ((1, 8191, 4, 2, 80), 4096, 50.0),
+    ((1, 256, 4, 2, 16), None, None), ((1, 256, 4, 2, 16), 16, 50.0),
+    ((2, 256, 6, 3, 48), None, 50.0), ((1, 256, 6, 1, 48), 64, None),
+    ((1, 256, 8, 1, 112), None, None), ((1, 256, 8, 1, 112), 100, 50.0),
+    ((2, 333, 8, 2, 112), 128, 50.0), ((1, 1000, 12, 4, 16), 16, 50.0),
+]
 # gemma2-27b's prefill shape: one 8192-token prompt (the model's context,
 # where the 4096 window bites on the local layers), 32 query heads over
 # 16 KV heads of 128.
@@ -230,6 +259,11 @@ LM_SEED = 20261017
 # largest of those readings (0.454); the argmax must agree. The same bar
 # holds the kernel's prefill against the plain attention's, and lm_serve.
 LM_F32_DECODE_ATOL = 5e-3
+# reduced_lm: the CPU tests' bar (tests/test_torch_lm.py) on the logits and
+# the cache of a prefill of 2 x 96 tokens, card against CPU
+REDUCED_ARCHS = ("gemma2-27b", "stablelm-3b")
+REDUCED_TOKENS = (2, 96)
+REDUCED_LOGIT_ATOL = 1e-4
 LM_BF16_DECODE_ATOL = 0.7
 LM_PREFILL_REPS = 2
 # lm_serve: 4 slots, a 512-slot cache, 8 greedy requests of 32-64 prompt
@@ -489,6 +523,18 @@ def sass_ops_by_kernel(lib_path: str) -> dict:
     return out
 
 
+def flash_f32_build(ptxas: dict) -> dict:
+    """ptxas's report of each float32 flash kernel instantiation, by head
+    dim (from ``ptxas_by_kernel``)."""
+    import re
+    out = {}
+    for name, rep in ptxas.items():
+        hit = re.search(r"flash_attention_f32_kernelILi(\d+)E", name)
+        if hit:
+            out[int(hit.group(1))] = rep
+    return out
+
+
 def sortscan_layout_of(name: str):
     """(kernel, W lanes per row, E slots per lane) of a sortscan kernel's
     mangled name, or None for any other kernel."""
@@ -512,12 +558,51 @@ def flash_sass_evidence(lib_path: str) -> dict:
     return ev
 
 
+def window_mask(torch, S: int, window: int, dev):
+    """The causal mask with a window as SDPA's boolean attn_mask (True:
+    the key takes part)."""
+    pos = torch.arange(S, device=dev)
+    lag = pos[:, None] - pos[None, :]
+    return (lag >= 0) & (lag < window)
+
+
+def sdpa_yardstick(torch, q, k, v, window: int, kernel, atol: float) -> dict:
+    """One torch call of the attention without a softcap beside the kernel
+    on the same inputs (``kernel()``, also without): SDPA with is_causal for
+    a global layer, with the boolean window mask for a windowed one. bf16
+    global layers pass enable_gqa (the flash backend takes it); elsewhere
+    the KV heads are expanded to the query heads outside the timed call,
+    so that the backends that take a mask or float32 (memory-efficient)
+    are open to it. Its time, the kernel's, and their largest difference,
+    held to ``atol``."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    expand = window > 0 or q.dtype != torch.bfloat16
+    if expand:
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+    if window > 0:
+        mask = window_mask(torch, q.shape[1], window, q.device)
+        call = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        name = f"scaled_dot_product_attention(attn_mask=<causal window {window}>)"
+    else:
+        call = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=not expand)
+        name = f"scaled_dot_product_attention(is_causal=True, enable_gqa={not expand})"
+    name = "torch.nn.functional." + name + (", KV heads expanded" if expand else "")
+    err = float((call().transpose(1, 2).float() - kernel().float()).abs().max())
+    check(err <= atol, f"flash without softcap vs SDPA ({q.dtype}, window {window}): {err}")
+    return {"call": name, "dtype": str(q.dtype).split(".")[-1], "softcap": None,
+            "window": window, "library_ms": device_ms(call, FLASH_TIMING_REPS),
+            "kernel_ms": device_ms(kernel, FLASH_TIMING_REPS),
+            "kernel_vs_library_max_abs": err, "atol": atol}
+
+
 def flash_phase(torch, dev) -> dict:
     """Both flash kernels against their plain version on the card; times at
     gemma2-27b's prefill shape. Launches made here are not a path's."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import _launch, build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -530,15 +615,8 @@ def flash_phase(torch, dev) -> dict:
                 for shape in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
 
     small = {"float32": [], "bfloat16": []}
-    cases = [((1, 128, 4, 2, 64), None, None), ((2, 256, 4, 1, 64), None, None),
-             ((1, 256, 8, 8, 128), None, None), ((2, 512, 2, 1, 64), None, None),
-             ((1, 256, 4, 2, 80), None, None), ((1, 256, 4, 2, 64), 128, None),
-             ((1, 256, 4, 2, 64), None, 30.0), ((1, 256, 4, 2, 64), 128, 50.0),
-             ((1, 191, 4, 2, 128), 64, 50.0), ((3, 1, 8, 1, 64), None, 50.0),
-             ((1, 127, 4, 4, 128), None, None), ((1, 128, 4, 2, 128), 200, None),
-             ((2, 129, 16, 2, 128), 16, 50.0), ((1, 8191, 4, 2, 80), 4096, 50.0)]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, window, cap in cases:
+        for shape, window, cap in FLASH_SMALL_CASES:
             q, k, v = qkv(*shape, dtype)
             got = ops.flash_attention(q, k, v, window=window, softcap=cap)
             want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
@@ -580,22 +658,22 @@ def flash_phase(torch, dev) -> dict:
                        "pairs": flash_pairs(S, window)}
     # the library yardstick: one torch call of the same function without the
     # softcap (no single call softcaps), beside the kernel on those inputs
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    nocap = lambda: ops.flash_attention(q, k, v)
-    sdpa_err = float((sdpa().transpose(1, 2).float() - nocap().float()).abs().max())
-    check(sdpa_err <= FLASH_BF16_ATOL, f"flash without softcap vs SDPA: {sdpa_err}")
-    library = {"call": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True)", "softcap": None, "window": 0,
-               "library_ms": device_ms(sdpa, FLASH_TIMING_REPS),
-               "kernel_ms": device_ms(nocap, FLASH_TIMING_REPS),
-               "kernel_sfu_floor_ms": flash_sfu_floor_ms(B * H * flash_pairs(S, 0), sms, clock_hz),
-               "kernel_vs_library_max_abs": sdpa_err,
-               "softcapped": "no single PyTorch call computes the softcapped function"}
-    del q, k, v, qt, kt, vt
-    # float32 at the path shape (the scalar kernel): a tile schedule that
-    # goes wrong only at S = 8192 shows here at the reference's float32 bar
-    path_f32 = {}
+    library = {label: sdpa_yardstick(torch, q, k, v, window,
+                                     lambda: ops.flash_attention(q, k, v, window=window),
+                                     FLASH_BF16_ATOL)
+               for label, window in (("global", 0), ("window4096", 4096))}
+    library["global"]["kernel_sfu_floor_ms"] = flash_sfu_floor_ms(B * H * flash_pairs(S, 0), sms,
+                                                                  clock_hz)
+    library["softcapped"] = "no single PyTorch call computes the softcapped function"
+    del q, k, v
+    torch.cuda.empty_cache()
+    # float32 at the path shape: times beside the bound, the launch floor
+    # (an empty kernel on the kernel's grid, block and shared memory) and
+    # SDPA in float32; a tile schedule that goes wrong only at S = 8192
+    # shows here at the reference's float32 bar
+    floor = _launch.c_entry("flash_attention.cu", "repro_flash_attention_floor",
+                            (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    path_f32, library_f32 = {}, {}
     q, k, v = qkv(B, S, H, G, hd, torch.float32)
     for label, window in (("global", 0), ("window4096", 4096)):
         run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
@@ -606,23 +684,79 @@ def flash_phase(torch, dev) -> dict:
         path_f32[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "window": window, "softcap": 50.0,
                            "max_abs_err": err, "ms": device_ms(run, FLASH_TIMING_REPS),
                            "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
-                           "bound_ms": t_b, "bound_by": by}
+                           "bound_ms": t_b, "bound_by": by,
+                           "launch_floor_ms": device_ms(
+                               lambda: _launch.call(floor, dev, B, S, H, G, hd),
+                               FLASH_TIMING_REPS),
+                           "layout_groups_heads_positions": fa.f32_layout(H // G)}
+        library_f32[label] = sdpa_yardstick(
+            torch, q, k, v, window, lambda: ops.flash_attention(q, k, v, window=window),
+            FLASH_F32_SDPA_ATOL)
     del q, k, v
     torch.cuda.empty_cache()
     lib = str(build.library_path("flash_attention.cu"))
     log = build.library_path("flash_attention.cu").with_suffix(".log").read_text()
     return {"phase": "flash", "phase_s": time.perf_counter() - t_phase,
             "small": small, "path_f32": path_f32, "path_bf16": path, "library": library,
+            "library_f32": library_f32,
             "f32_atol": FLASH_F32_ATOL,
             "bf16_bar": f"min({FLASH_BF16_ATOL}, {FLASH_BF16_NEAR0} + {FLASH_BF16_RTOL} |o| + "
                         f"{FLASH_BF16_PROB} |o|_abs)",
-            "sdpa_atol": FLASH_BF16_ATOL,
+            "sdpa_atol": {"bfloat16": FLASH_BF16_ATOL, "float32": FLASH_F32_SDPA_ATOL},
             "sfu": {"sms": sms, "clock_max_hz": clock_hz, "per_clock_per_sm": SFU_PER_CLOCK_PER_SM,
                     "ops_per_pair": "1 ex2; 2 more where tanhf leaves its polynomial",
                     "tanh_poly_limit": TANH_POLY_LIMIT},
             "ptxas_bf16_kernel": flash_kernel_ptxas(log, "wgmma"),
+            "ptxas_f32_kernel": flash_kernel_ptxas(log, "f32_kernel"),
             "sass_bf16_library": flash_sass_evidence(lib),
             "timing": f"device time, median of {FLASH_TIMING_REPS} calls between CUDA events"}
+
+
+def reduced_lm_phase(torch, dev) -> dict:
+    """The reduced configs as they are (float32, head dim 16; gemma's with a
+    window and a softcap): model.prefill on the card against the same call
+    on the CPU, each layer through the float32 kernel. Launches made here
+    are not a path's."""
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for i, arch in enumerate(REDUCED_ARCHS):
+        cfg = configs.reduced(configs.get(arch))
+        params = M.init_params(cfg, LM_SEED, "cpu")
+        rng = np.random.default_rng(np.random.SeedSequence(LM_SEED, spawn_key=(i,)))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, REDUCED_TOKENS))
+        want, wcache = M.prefill(params, cfg, {"tokens": toks})
+        before = fa.flash_attention.kernel_launches["float32"]
+        got, gcache = M.prefill(to_device(params, dev), cfg, {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        rows[arch] = {"heads": [cfg.n_heads, cfg.n_kv, cfg.hd], "layers": cfg.n_layers,
+                      "window": cfg.window, "attn_softcap": cfg.attn_softcap,
+                      "tokens": list(REDUCED_TOKENS),
+                      "f32_launches": fa.flash_attention.kernel_launches["float32"] - before,
+                      "max_abs_dlogit": float((got.cpu() - want).abs().max()),
+                      "max_abs_dcache_k": float((gcache["k"].cpu() - wcache["k"]).abs().max()),
+                      "max_abs_logit": float(want.abs().max())}
+        emit({"phase": "reduced_lm", "arch": arch, **rows[arch]})
+        check(rows[arch]["f32_launches"] == cfg.n_layers,
+              f"reduced {arch}: {rows[arch]['f32_launches']} float32 flash launches")
+        check(bool(torch.isfinite(got).all()), f"reduced {arch}: logits not finite")
+        check(rows[arch]["max_abs_dlogit"] <= REDUCED_LOGIT_ATOL
+              and rows[arch]["max_abs_dcache_k"] <= REDUCED_LOGIT_ATOL,
+              f"reduced {arch}: card vs CPU {rows[arch]}")
+    return {"phase": "reduced_lm", "phase_s": time.perf_counter() - t_phase,
+            "atol": REDUCED_LOGIT_ATOL, "archs": list(rows)}
+
+
+def to_device(params, dev):
+    """A model's parameter tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(params, dict):
+        return {k: to_device(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_device(v, dev) for v in params]
+    return params.to(dev)
 
 
 def device_profile(torch, fn, n_top: int = 8) -> dict:
@@ -1149,8 +1283,17 @@ def smoke(torch) -> dict:
         log = build.library_path(src).with_suffix(".log").read_text()
         ptxas[src] = [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "Compiling entry" in ln or "stack frame" in ln]
+    # the float32 flash kernel: one instantiation per head dim; none may
+    # spill at hd 128, the path's
+    flash_build = flash_f32_build(ptxas_by_kernel(
+        build.library_path("flash_attention.cu").with_suffix(".log").read_text()))
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
-          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas})
+          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build})
+    check(sorted(flash_build) == sorted(autotune.FLASH_HEAD_DIMS),
+          f"float32 flash instantiations built: {sorted(flash_build)}")
+    check(flash_build[128]["stack_bytes"] == flash_build[128]["spill_store_bytes"]
+          == flash_build[128]["spill_load_bytes"] == 0,
+          f"the float32 flash kernel spills at hd 128: {flash_build[128]}")
     # the sortscan kernels of L <= 256 work in registers and shuffles: no
     # shared memory, no barrier; no projection kernel spills at any width
     oga_lib = build.library_path("oga_step.cu")
@@ -1467,6 +1610,7 @@ def smoke(torch) -> dict:
                     f"an empty kernel on the launch's grid, timed the same way"})
     flash = flash_phase(torch, dev)
     emit(flash)
+    emit(reduced_lm_phase(torch, dev))
 
     # ------------------------------------------------------------- autotune
     # one count per CUDA kernel; both flash kernels sit behind one wrapper,
@@ -1792,11 +1936,14 @@ def smoke(torch) -> dict:
                             [r["max_abs_err"] for r in flash["path_bf16"].values()]),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-         "library_ms": flash["library"]["library_ms"],
-         "library_vs_kernel_without_softcap_ms": flash["library"]["kernel_ms"],
-         "window4096": {k: flash["path_bf16"]["window4096"][k]
-                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
-        {"name": "flash_attention_f32", "kernel": "flash_attention_kernel",
+         "library_ms": flash["library"]["global"]["library_ms"],
+         "library_vs_kernel_without_softcap_ms": flash["library"]["global"]["kernel_ms"],
+         "window4096": {**{k: flash["path_bf16"]["window4096"][k]
+                           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                        "library_ms": flash["library"]["window4096"]["library_ms"],
+                        "library_vs_kernel_without_softcap_ms":
+                            flash["library"]["window4096"]["kernel_ms"]}},
+        {"name": "flash_attention_f32", "kernel": "flash_attention_f32_kernel",
          "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": sum(by_path(4).values()),
@@ -1805,9 +1952,15 @@ def smoke(torch) -> dict:
                             [r["max_abs_err"] for r in flash["path_f32"].values()]),
          "ms": fl32["ms"], "plain_ms": fl32["plain_ms"],
          "bound_ms": fl32["bound_ms"], "bound_by": fl32["bound_by"],
-         "library_ms": None,
-         "window4096": {k: flash["path_f32"]["window4096"][k]
-                        for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         "launch_floor_ms": fl32["launch_floor_ms"],
+         "library_ms": flash["library_f32"]["global"]["library_ms"],
+         "library_vs_kernel_without_softcap_ms": flash["library_f32"]["global"]["kernel_ms"],
+         "window4096": {**{k: flash["path_f32"]["window4096"][k]
+                           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "launch_floor_ms")},
+                        "library_ms": flash["library_f32"]["window4096"]["library_ms"],
+                        "library_vs_kernel_without_softcap_ms":
+                            flash["library_f32"]["window4096"]["kernel_ms"]}},
     ]
     emit({"kernels": kernels})
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,15 +83,19 @@ MAX_BISECT_ITERS = 64
 PROJ_METHODS = ("sortscan", "bisect")
 DEFAULT_PROJ_METHOD = "sortscan"    # the exact breakpoint sweep
 KERNELS = ("oga_step", "proj")
-# Flash attention, float32 (csrc/flash_attention.cu, the scalar kernel):
-# query rows per block, keys per shared-memory tile, threads per query row
-# (each holds hd / 4 lanes of it), and the head dims both kernels take. A
-# fixed choice, not tuned; the C entry refuses a launch whose constants
-# differ from these.
-FLASH_BLOCK_Q = 64
-FLASH_BLOCK_K = 32
-FLASH_THREADS_PER_ROW = 4
-FLASH_HEAD_DIMS = (64, 80, 128)
+# Flash attention, float32 (csrc/flash_attention.cu, namespace f32): query
+# rows (position, head) per block, keys per K/V tile, K/V tiles in flight,
+# and a thread's microtile: rows x keys of S (the same rows of O). A fixed
+# choice, not tuned; the C entry refuses a launch whose constants differ
+# from these. At hd 128 the ring's two stages fill the 227 KB a block may
+# opt in to. The head dims both flash kernels take: the multiples of 16
+# from 16 to 128 (every config's and every reduced config's).
+FLASH_BLOCK_ROWS = 128
+FLASH_BLOCK_K = 64
+FLASH_STAGES = 2
+FLASH_MICRO_ROWS = 8
+FLASH_MICRO_KEYS = 4
+FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 # The bf16 flash kernel (tensor cores, the same file): query rows per block,
 # keys per K/V tile in shared memory, and the K/V tiles in flight. Fixed
 # too; its C entry refuses others.

@@ -3,13 +3,19 @@
 Counterpart of ``repro.kernels.flash_attention``. ``flash_attention`` is
 the wrapper of two CUDA kernels in ``csrc/flash_attention.cu``: bf16
 tensors launch the tensor-core kernel ``flash_attention_wgmma_kernel``,
-float32 tensors the scalar kernel ``flash_attention_kernel``; CPU tensors
-compute the plain version ``ref.flash_attention_ref``. Either way it
-first checks what the kernels take: float32 or bf16 q, k, v of one type,
-q (B, S, H, hd) and k, v (B, S, G, hd) with G dividing H, hd in
-``autotune.FLASH_HEAD_DIMS``, the head dim contiguous, and for bf16 on
-the card what the tensor-core kernel's loads need (``tma_violation``).
-Other strides are read as they are: nothing is transposed or copied.
+float32 tensors the FFMA kernel ``flash_attention_f32_kernel``; CPU
+tensors compute the plain version ``ref.flash_attention_ref``. Either way
+it first checks what the kernels take: float32 or bf16 q, k, v of one
+type, q (B, S, H, hd) and k, v (B, S, G, hd) with G dividing H, hd in
+``autotune.FLASH_HEAD_DIMS`` (a multiple of 16 from 16 to 128), the head
+dim contiguous, and on the card what the kernels' TMA loads need
+(``tma_violation``: of q, k and v in bf16, of k and v in float32, whose q
+is read by plain loads). Other strides are read as they are: nothing is
+transposed or copied.
+
+``f32_layout`` and ``f32_schedule`` state, in Python, how the float32
+kernel packs the query heads of a KV head into a block and which K/V
+tiles each block visits, with or without the per-element mask.
 """
 from __future__ import annotations
 
@@ -22,13 +28,26 @@ import torch
 from repro_torch.kernels import _launch, autotune, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = (
-    (ctypes.c_void_p,) * 4                      # q, k, v, o
-    + (ctypes.c_int,) * 8                       # B, S, H, G, hd, three tile constants
-    + (ctypes.POINTER(ctypes.c_longlong),)      # 12 strides
-    + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
-    + (ctypes.c_void_p,)                        # stream
-)
+
+
+def _argtypes(n_tiles: int) -> tuple:
+    """ctypes argument types of a flash C entry with ``n_tiles`` tile
+    constants."""
+    return ((ctypes.c_void_p,) * 4                      # q, k, v, o
+            + (ctypes.c_int,) * (5 + n_tiles)            # B, S, H, G, hd, tile constants
+            + (ctypes.POINTER(ctypes.c_longlong),)       # 12 strides
+            + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
+            + (ctypes.c_void_p,))                        # stream
+
+
+# the C entry, its argument types and its tile constants, by dtype
+_ENTRIES = {
+    torch.bfloat16: ("repro_flash_attention_bf16", (
+        autotune.FLASH_TC_BLOCK_Q, autotune.FLASH_TC_BLOCK_K, autotune.FLASH_TC_STAGES)),
+    torch.float32: ("repro_flash_attention", (
+        autotune.FLASH_BLOCK_ROWS, autotune.FLASH_BLOCK_K, autotune.FLASH_STAGES,
+        autotune.FLASH_MICRO_ROWS, autotune.FLASH_MICRO_KEYS)),
+}
 # bytes: TMA reads from a base address and with strides that are multiples
 # of this
 TMA_ALIGN = 16
@@ -73,7 +92,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if G < 1 or H % G:
         raise ValueError(f"{G} KV heads do not divide {H} query heads")
     if hd not in autotune.FLASH_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {autotune.FLASH_HEAD_DIMS}")
+        raise ValueError(f"head_dim {hd} is not taken: the kernels take a multiple of 16 "
+                         f"from 16 to 128, {autotune.FLASH_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES:
             raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes {_DTYPES}")
@@ -83,10 +103,43 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim is not contiguous")
-        if t.dtype == torch.bfloat16 and t.device.type == "cuda":
+        if t.device.type == "cuda" and (t.dtype == torch.bfloat16 or name != "q"):
             why = tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr())
             if why is not None:
-                raise ValueError(f"{name}: the bf16 kernel cannot read it: {why}")
+                raise ValueError(f"{name}: the {t.dtype} kernel cannot read it: {why}")
+
+
+def f32_layout(rep: int) -> tuple:
+    """(head groups, heads per block, positions per block) of the float32
+    kernel's GQA packing: a block holds FLASH_BLOCK_ROWS query rows, the
+    positions of a tile times the heads of a group; the rep query heads of
+    a KV head form as few groups as fit (one while rep <= the rows)."""
+    rows = autotune.FLASH_BLOCK_ROWS
+    groups = -(-rep // rows)
+    heads = -(-rep // groups)
+    return groups, heads, rows // heads
+
+
+def f32_schedule(S: int, window: int, rep: int) -> list:
+    """The float32 kernel's tile schedule, for each query tile in position
+    order: (q0, positions, [(k0, masked), ...]). A tile of FLASH_BLOCK_K
+    keys from k0 is visited when any position of the query tile sees a key
+    in it; ``masked`` is False only where every position of the tile sees
+    every key of it (below the diagonal, inside the window, below S), and
+    the kernel then skips the per-element mask."""
+    bk = autotune.FLASH_BLOCK_K
+    bq = f32_layout(rep)[2]
+    out = []
+    for q0 in range(0, S, bq):
+        k_end = min(q0 + bq, S)
+        k_first = max(0, q0 - window + 1) if window > 0 else 0
+        tiles = []
+        for k0 in range(k_first // bk * bk, k_end, bk):
+            whole = (k0 + bk - 1 <= q0 and k0 + bk <= S
+                     and (window <= 0 or k_end - 1 - k0 < window))
+            tiles.append((k0, not whole))
+        out.append((q0, k_end - q0, tiles))
+    return out
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
@@ -108,16 +161,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     B, S, H, hd = q.shape
     G = k.shape[2]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if q.dtype == torch.bfloat16:
-        dims = [tma_strides(t.shape, t.stride()) for t in (q, k, v, o)]
-        entry, tiles = "repro_flash_attention_bf16", (
-            autotune.FLASH_TC_BLOCK_Q, autotune.FLASH_TC_BLOCK_K, autotune.FLASH_TC_STAGES)
-    else:
-        dims = [tuple(t.stride(i) for i in range(3)) for t in (q, k, v, o)]
-        entry, tiles = "repro_flash_attention", (
-            autotune.FLASH_BLOCK_Q, autotune.FLASH_BLOCK_K, autotune.FLASH_THREADS_PER_ROW)
+    dims = [tma_strides(t.shape, t.stride()) for t in (q, k, v, o)]
     strides = (ctypes.c_longlong * 12)(*(st for d in dims for st in d))
-    fn = _launch.c_entry("flash_attention.cu", entry, _ARGTYPES)
+    entry, tiles = _ENTRIES[q.dtype]
+    fn = _launch.c_entry("flash_attention.cu", entry, _argtypes(len(tiles)))
     _launch.call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, S, H, G, hd, *tiles, strides, w, hd ** -0.5,
                  0.0 if softcap is None else float(softcap))

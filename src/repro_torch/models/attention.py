@@ -25,9 +25,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, hd); k, v: (B, S, G, hd) with H = G * rep. Returns like q.
 
     The CPU branch calls the plain version itself, not the wrapper: the
-    wrapper refuses on every device what the kernel does not take (head
-    dims outside ``autotune.FLASH_HEAD_DIMS``), and the reduced configs'
-    head dim, 16, is one of those.
+    wrapper refuses on every device what the kernels do not take (head
+    dims outside ``autotune.FLASH_HEAD_DIMS``, the multiples of 16 from 16
+    to 128: every config's, the reduced configs' 16 among them), and the
+    plain version takes any.
     """
     if q.device.type == "cuda":
         return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap)

@@ -18,7 +18,7 @@ run on CPU copies of the inputs; rows of zero capacity or of z = 0 come
 back exactly 0.
 bf16 bisection: 2^-5 against the plain version (two bf16 ulps at
 |y| < 4; both solve in float32 and round once). Flash attention against
-its plain version: 2e-5 in float32 (the scalar kernel; the reference's
+its plain version: 2e-5 in float32 (the FFMA kernel; the reference's
 bar; the kernel sums in another order); in bf16 (the tensor-core kernel)
 min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs), elementwise, with |o|_abs the
 plain version run on |v|: the kernel rounds P once to bf16 before the PV
@@ -26,8 +26,10 @@ product (<= 2^-9 relative per p, so <= 2^-9 |o|_abs on o; doubled), and
 both round the output once (a flip is one ulp <= 2^-7 |o|); 0.05 is the
 reference's bf16 bar (tests/test_torch_flash_numerics.py holds the
 derivation on the CPU); the LM on the
-card against the CPU in float32: 1e-3 on logits (float32 matmuls in
-another order, two layers deep, logits of size ~1-30). The job lifecycle
+card against the CPU in float32: 1e-3 on logits at head dim 64 (float32
+matmuls in another order, three layers deep, logits of size ~1-30), 1e-4
+for the reduced configs as they are (head dim 16, d_model 64: the CPU
+tests' bar). The job lifecycle
 on the card against the same run on the CPU: events exactly, rewards and
 occupancy within 1e-4 of their largest (the card's projection solves in
 double, the CPU's in float32).
@@ -379,7 +381,11 @@ def _qkv(rng, B, S, H, G, hd, dev, dtype):
     (1, 256, 8, 8, 128, None, None), (2, 512, 2, 1, 64, None, None),
     (1, 256, 4, 2, 80, None, None), (1, 256, 4, 2, 64, 128, None),
     (1, 256, 4, 2, 64, None, 30.0), (1, 256, 4, 2, 64, 128, 50.0),
-    (1, 191, 4, 2, 128, 64, 50.0), (3, 77, 6, 3, 80, 0, None)])
+    (1, 191, 4, 2, 128, 64, 50.0), (3, 77, 6, 3, 80, 0, None),
+    (1, 128, 4, 2, 16, None, None), (1, 200, 4, 2, 16, 16, 50.0),
+    (2, 96, 8, 1, 32, None, 30.0), (1, 256, 6, 3, 48, None, None),
+    (1, 177, 4, 2, 48, 64, 50.0), (1, 130, 6, 2, 96, 100, None),
+    (1, 256, 8, 1, 112, None, None), (2, 150, 16, 2, 112, 64, 50.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, S, H, G, hd, window, softcap, dtype):
     q, k, v = _qkv(_rng(9, S, hd), B, S, H, G, hd, dev, dtype)
@@ -450,7 +456,7 @@ def test_flash_kernel_reads_strided_views(dev):
                                    window=64, softcap=50.0)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     with pytest.raises(ValueError):
-        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+        ops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
 
 
 def test_flash_bf16_kernel_reads_strided_views(dev):
@@ -491,15 +497,38 @@ def test_lm_prefill_on_the_card_matches_cpu(dev, arch):
     params = TM.init_params(cfg, 0, "cpu")
     toks = torch.from_numpy(_rng(10).integers(0, cfg.vocab, (2, 96)))
     want, wcache = TM.prefill(params, cfg, {"tokens": toks})
-    on_card = {k: ([{n: {m: t.to(dev) for m, t in d.items()} if isinstance(d, dict)
-                     else d.to(dev) for n, d in blk.items()} for blk in v]
-                   if k == "blocks" else v.to(dev)) for k, v in params.items()}
+    on_card = _to(params, dev)
     before = tfa.flash_attention.launches
     got, gcache = TM.prefill(on_card, cfg, {"tokens": toks.to(dev)})
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)
     torch.testing.assert_close(gcache["k"].cpu(), wcache["k"], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "stablelm-3b"])
+def test_reduced_config_prefill_on_the_card_matches_cpu(dev, arch):
+    """A reduced config as it is (float32, head dim 16; gemma's with a
+    window of 16 and a softcap): prefill on the card, through the float32
+    kernel once per layer, against the same call on the CPU, at the CPU
+    tests' bar of 1e-4 on the logits."""
+    cfg = tconfigs.reduced(tconfigs.get(arch))
+    params = TM.init_params(cfg, 0, "cpu")
+    toks = torch.from_numpy(_rng(13).integers(0, cfg.vocab, (2, 96)))
+    want, wcache = TM.prefill(params, cfg, {"tokens": toks})
+    before = tfa.flash_attention.kernel_launches["float32"]
+    got, gcache = TM.prefill(_to(params, dev), cfg, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.kernel_launches["float32"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gcache["k"].cpu(), wcache["k"], atol=1e-4, rtol=0)
+
+
+def _to(params, dev):
+    """The model's parameter tree on ``dev``."""
+    return {k: ([{n: {m: t.to(dev) for m, t in d.items()} if isinstance(d, dict)
+                  else d.to(dev) for n, d in blk.items()} for blk in v]
+                if k == "blocks" else v.to(dev)) for k, v in params.items()}
 
 
 @pytest.mark.parametrize("name", ["ogasched", "fairness", "hesrpt"])

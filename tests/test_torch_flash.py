@@ -5,6 +5,10 @@ package: the Pallas kernel in interpret mode and its oracle
 Tolerances: 2e-5 in float32 (the reference's own bar for its kernel
 against its oracle; the two sum the scores in another order), 0.05 in
 bf16 (the reference's bf16 bar: one bf16 rounding of outputs of size ~1).
+
+Also on the CPU: the head dims the wrapper takes (the multiples of 16 from
+16 to 128, on every device), and the float32 kernel's tile schedule
+(``f32_schedule``) against a brute-force mask.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.models import attention as tattn
 
 F32_ATOL = 2e-5
@@ -43,7 +47,8 @@ def _check_both(arrays, got, atol, dtype=jnp.float32, window=None, softcap=None)
 
 @pytest.mark.parametrize("B,S,H,G,hd", [(1, 128, 4, 2, 64), (2, 256, 4, 1, 64),
                                         (1, 256, 8, 8, 128), (2, 512, 2, 1, 64),
-                                        (1, 128, 4, 2, 80)])
+                                        (1, 128, 4, 2, 80), (1, 128, 4, 2, 16),
+                                        (2, 128, 6, 3, 48), (1, 128, 8, 1, 112)])
 def test_plain_flash_matches_reference_shapes(B, S, H, G, hd):
     arrays = _qkv(S + hd, B, S, H, G, hd)
     _check_both(arrays, _port(arrays), F32_ATOL)
@@ -81,7 +86,7 @@ def test_ragged_query_blocks_match_one_block():
 
 
 def test_model_attention_on_the_cpu_is_the_plain_version():
-    t = [torch.from_numpy(a) for a in _qkv(12, 1, 64, 4, 2, 16)]  # hd 16: no kernel
+    t = [torch.from_numpy(a) for a in _qkv(12, 1, 64, 4, 2, 16)]
     before = tfa.flash_attention.launches
     got = tattn.attention(*t, window=32, attn_softcap=50.0)
     assert torch.equal(got, ref.flash_attention_ref(*t, window=32, softcap=50.0))
@@ -91,7 +96,10 @@ def test_model_attention_on_the_cpu_is_the_plain_version():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k, v = (torch.from_numpy(a) for a in _qkv(13, 1, 64, 4, 2, 64))
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q[..., :16], k[..., :16], v[..., :16])
+        ops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    wide = [torch.from_numpy(a) for a in _qkv(13, 1, 64, 4, 2, 144)]
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(*wide)
     with pytest.raises(TypeError):
         ops.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
@@ -135,3 +143,62 @@ def test_tma_rule_binds_only_on_the_card():
     assert shifted.data_ptr() % 16 == 8
     assert torch.equal(ops.flash_attention(shifted, k, v),
                        ref.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("hd", range(8, 152, 8))
+def test_wrapper_takes_exactly_the_legal_head_dims(hd):
+    """Every multiple of 16 from 16 to 128 runs (here the plain version);
+    any other head dim raises a ValueError that names the rule."""
+    arrays = _qkv(15, 1, 40, 4, 2, hd)
+    legal = hd % 16 == 0 and 16 <= hd <= 128
+    assert (hd in autotune.FLASH_HEAD_DIMS) == legal
+    if not legal:
+        with pytest.raises(ValueError, match="multiple of 16 from 16 to 128"):
+            _port(arrays, window=16, softcap=50.0)
+        return
+    t = [torch.from_numpy(a) for a in arrays]
+    got = ops.flash_attention(*t, window=16, softcap=50.0)
+    assert torch.equal(got, ref.flash_attention_ref(*t, window=16, softcap=50.0))
+
+
+def _seen(S, window, q0, n):
+    """The brute-force mask of positions q0..q0+n-1 over keys 0..S-1."""
+    pos = np.arange(q0, q0 + n)[:, None]
+    key = np.arange(S)[None, :]
+    seen = key <= pos
+    if window > 0:
+        seen &= pos - key < window
+    return seen
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("window", [0, 1, 16, 4096])
+@pytest.mark.parametrize("S", [1, 77, 4161])
+def test_f32_tile_schedule_matches_brute_force_mask(S, window, rep):
+    """The float32 kernel's schedule visits every tile that holds an
+    unmasked pair of its query tile and no other, and skips the
+    per-element mask exactly on the tiles below S that every position of
+    the query tile sees whole."""
+    groups, heads, bq = tfa.f32_layout(rep)
+    assert groups == 1 and heads == rep and bq * rep <= autotune.FLASH_BLOCK_ROWS
+    bk = autotune.FLASH_BLOCK_K
+    sched = tfa.f32_schedule(S, window, rep)
+    assert [q0 for q0, _, _ in sched] == list(range(0, S, bq))
+    for q0, n, tiles in sched:
+        assert n == min(bq, S - q0)
+        seen = _seen(S, window, q0, n)
+        want = [k0 for k0 in range(0, S, bk) if seen[:, k0:k0 + bk].any()]
+        assert [k0 for k0, _ in tiles] == want, (q0, tiles)
+        for k0, masked in tiles:
+            whole = k0 + bk <= S and seen[:, k0:k0 + bk].all()
+            assert masked == (not whole), (q0, k0, masked)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3, 7, 12, 128, 129, 300])
+def test_f32_layout_packs_every_query_head(rep):
+    """Head groups of at most FLASH_BLOCK_ROWS heads cover the rep query
+    heads of a KV head, and a block's rows (positions x heads) fit."""
+    groups, heads, bq = tfa.f32_layout(rep)
+    assert groups * heads >= rep > (groups - 1) * heads
+    assert heads <= autotune.FLASH_BLOCK_ROWS and 1 <= bq
+    assert bq * heads <= autotune.FLASH_BLOCK_ROWS < (bq + 1) * heads

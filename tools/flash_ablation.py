@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""What each piece of the bf16 flash kernel buys, on one NVIDIA card.
+"""What each piece of the flash kernels buys, on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/flash_ablation.py
+    python3 tools/flash_ablation.py [--parent DIR]
 
 Builds src/repro_torch/kernels/csrc/flash_attention.cu as it is
 ("kernel") and variants made from it by text edits, each with nvcc into
-its own library (all at once), and times the bf16 kernel of each at
-gemma2-27b's prefill shape (1, 8192, 32, 16, 128): softcap 50 global and
-with window 4096, and no softcap, in turns (every variant, then again in
-reverse order; each time the median of 20 calls between CUDA events).
+its own library (all at once), and times the bf16 kernel of each bf16
+variant and the float32 kernel of each float32 variant at gemma2-27b's
+prefill shape (1, 8192, 32, 16, 128): softcap 50 global and with window
+4096, and no softcap, in turns (every variant, then again in reverse
+order; each time the median of 20 calls between CUDA events). With
+``--parent DIR`` (a checkout of another commit) its flash_attention.cu is
+built too, as the bf16 variant "parent", so the two bf16 kernels are timed
+in turns in one call (change, parent, parent, change); ``--only parent``
+builds and times those two alone.
+
+bf16 variants (the tensor-core kernel):
 
   one_kv_barrier  K and V of a stage share one "empty" barrier, freed after
                   P V (the producer then loads K_{t+1} only after P V_{t-1})
@@ -30,16 +37,29 @@ reverse order; each time the median of 20 calls between CUDA events).
                   K or V (a diagnostic: the kernel on stale tiles)
   cond_rescale    O *= alpha skipped when every alpha of the warp is 1
 
-Every variant is checked against the plain version at small shapes (the
-bar of chip_smoke.py) and, at the path shape, bit for bit against
-"kernel": all but the four diagnostics (gemm_only, softmax_only,
-softmax_only_no_exp, no_loads) and one_chain (which sums l in another
-order) keep the arithmetic. Prints one JSON line, and the card's name,
-power limit and SM clock. Needs no network.
+float32 variants (the FFMA kernel; its "no softcap" is the no_softcap
+column of every variant):
 
-The variants are text edits of the kernel's source: an edit that no longer
-applies after a change to the kernel raises ValueError naming it, and the
-variant has to be written anew against the new source.
+  f32_gemm_only   the softmax replaced by a scaling of S: the two products,
+                  the P tile and the loads alone (a diagnostic)
+  f32_softmax_only  S from one 4-column step of Q K^T instead of hd / 4, and
+                  P folded into O by one add a key instead of P V: the
+                  softmax, the P tile and the loads alone (a diagnostic)
+  f32_stages1     one K/V stage instead of the ring of two: tile t is asked
+                  for in turn t, so no load overlaps the products
+
+Every variant is checked against the plain version at small shapes (the
+bars of chip_smoke.py) and, at the path shape, bit for bit against
+"kernel": all but the diagnostics (gemm_only, softmax_only,
+softmax_only_no_exp, no_loads, f32_gemm_only, f32_softmax_only) and
+one_chain (which sums l in another order) keep the arithmetic. Prints one
+JSON line, and the card's name, power limit and SM clock. Needs no
+network.
+
+The variants are text edits of the kernel's source: each edit must apply
+exactly once, and one that no longer does after a change to the kernel
+raises ValueError naming it; the variant has to be written anew against
+the new source.
 """
 from __future__ import annotations
 
@@ -59,13 +79,52 @@ REPS = 20
 
 def _edit(text: str, pairs) -> str:
     for old, new in pairs:
-        if old not in text:
-            raise ValueError(f"variant edit does not apply: {old[:60]!r}")
+        if text.count(old) != 1:
+            raise ValueError(f"variant edit does not apply exactly once: {old[:60]!r}")
         text = text.replace(old, new)
     return text
 
 
-def variants(src: str) -> dict:
+# the float32 kernel's softmax call, and the products' inner statements
+_F32_SOFTMAX = (
+    "    if (whole) {\n"
+    "      softmax_tile<false>(s, m, l, alpha, q0, pos_lo, pos_hi, k0 + cl, S, window, scale, cap,\n"
+    "                          inv_cap, c);\n"
+    "    } else {\n"
+    "      softmax_tile<true>(s, m, l, alpha, q0, pos_lo, pos_hi, k0 + cl, S, window, scale, cap,\n"
+    "                         inv_cap, c);\n"
+    "    }\n")
+_F32_QK_BOXES = (
+    "#pragma unroll 1\n"
+    "  for (int box = 0; box < HD / kBoxCols; ++box) {\n"
+    "    qk_box<kBoxCols / 4>(s, q_rows + box * kQBox, k_rows + box * kKVBox, rg, kx);\n"
+    "  }\n"
+    "  if constexpr (HD % kBoxCols != 0) {\n")
+_F32_PV_FMA = "              acc[i][g * C::kVec + x] = fmaf(p, vf[g][x], acc[i][g * C::kVec + x]);\n"
+
+
+def f32_variants(src: str) -> dict:
+    """The float32 kernel's variants (text edits of ``src``)."""
+    return {
+        "f32_gemm_only": _edit(src, [(_F32_SOFTMAX, (
+            "    (void)whole;\n"
+            "#pragma unroll\n"
+            "    for (int i = 0; i < kMicroRows; ++i) {\n"
+            "      alpha[i] = 1.0f;\n"
+            "#pragma unroll\n"
+            "      for (int j = 0; j < kMicroKeys; ++j) s[i][j] *= 1e-3f;\n"
+            "    }\n"))]),
+        "f32_softmax_only": _edit(src, [
+            (_F32_QK_BOXES, "  qk_box<1>(s, q_rows, k_rows, rg, kx);\n  if constexpr (false) {\n"),
+            (_F32_PV_FMA, "              if (g == 0 && x == 0) acc[i][0] += p;\n")]),
+        "f32_stages1": _edit(src, [
+            ("constexpr int kRing = 2;", "constexpr int kRing = 1;"),
+            ("stages != f32::kRing ||", "")]),
+    }
+
+
+def bf16_variants(src: str) -> dict:
+    """The bf16 kernel's variants (text edits of ``src``), "kernel" first."""
     turns = [(f'asm volatile("bar.{op} {i}, 256;\\n" ::: "memory");', "")
              for op, i in (("sync", 1), ("sync", 2), ("arrive", 1), ("arrive", 2))]
     gemm_a = src.index("    auto softmax = [&](")
@@ -120,8 +179,16 @@ def variants(src: str) -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout whose flash_attention.cu is built as the "
+                                     "bf16 variant 'parent'")
+    ap.add_argument("--only", help="comma-separated variants to build and time besides "
+                                   "'kernel' (default: every one)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_ablation: no CUDA device", file=sys.stderr)
         return 2
@@ -131,7 +198,16 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
 
     src = open(SOURCE).read()
-    todo = variants(src)
+    todo = bf16_variants(src)
+    f32_names = ["kernel", *f32_variants(src)]
+    todo.update(f32_variants(src))
+    if args.parent:
+        todo["parent"] = open(os.path.join(args.parent, os.path.relpath(SOURCE, ROOT))).read()
+    if args.only:
+        keep = {"kernel", *args.only.split(",")}
+        todo = {n: t for n, t in todo.items() if n in keep}
+        f32_names = [n for n in f32_names if n in keep]
+    bf16_names = [n for n in todo if n not in f32_names[1:]]
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, text in todo.items():
@@ -141,15 +217,19 @@ def main() -> int:
         procs[name] = (subprocess.Popen([nvcc_path(), *build.NVCC_FLAGS, "-o", lib, cu],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
-    fns, ptxas = {}, {}
+    fns, ptxas = {torch.bfloat16: {}, torch.float32: {}}, {}
     for name, (proc, lib) in procs.items():
         log = proc.communicate(timeout=build.NVCC_TIMEOUT_S)[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
-        ptxas[name] = chip_smoke.flash_kernel_ptxas(log, "wgmma_kernelILi128ELb1")
-        fn = ctypes.CDLL(lib).repro_flash_attention_bf16
-        fn.argtypes, fn.restype = list(fa._ARGTYPES), ctypes.c_int
-        fns[name] = fn
+        ptxas[name] = (chip_smoke.flash_kernel_ptxas(log, "wgmma_kernelILi128ELb1")
+                       + chip_smoke.flash_kernel_ptxas(log, "f32_kernelILi128E"))
+        for dtype, names in ((torch.bfloat16, bf16_names), (torch.float32, f32_names)):
+            if name in names:
+                symbol, tiles = fa._ENTRIES[dtype]
+                fn = getattr(ctypes.CDLL(lib), symbol)
+                fn.argtypes, fn.restype = list(fa._argtypes(len(tiles))), ctypes.c_int
+                fns[dtype][name] = fn
 
     current = {}
     real_entry = fa._launch.c_entry
@@ -159,50 +239,62 @@ def main() -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(chip_smoke.LM_SEED)
 
-        def qkv(B, S, H, G, hd):
-            return [torch.randn(sh, generator=gen, device=dev).bfloat16()
+        def qkv(B, S, H, G, hd, dtype):
+            return [torch.randn(sh, generator=gen, device=dev).to(dtype)
                     for sh in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd))]
+
+        def error(q, k, v, w, cap):
+            """The worst error of the current library at a small shape
+            against its bar: bf16 over chip_smoke's elementwise bar, float32
+            over FLASH_F32_ATOL."""
+            got = fa.flash_attention(q, k, v, window=w, softcap=cap)
+            want = ref.flash_attention_ref(q, k, v, window=w, softcap=cap)
+            if q.dtype == torch.float32:
+                return float((got - want).abs().max()) / chip_smoke.FLASH_F32_ATOL
+            return chip_smoke.flash_bf16_errors(
+                got, want, ref.flash_attention_ref(q, k, v.abs(), window=w, softcap=cap),
+            )["max_err_over_bar"]
 
         small = [((1, 300, 4, 2, 128), None, 50.0), ((2, 129, 16, 2, 128), 16, 50.0),
                  ((1, 200, 4, 2, 80), 64, None), ((1, 513, 4, 4, 64), 100, 50.0)]
-        small_inputs = [(qkv(*sh), w, cap) for sh, w, cap in small]
-        worst = {}
-        for name, fn in fns.items():
-            current["fn"] = fn
-            worst[name] = max(
-                chip_smoke.flash_bf16_errors(
-                    fa.flash_attention(q, k, v, window=w, softcap=cap),
-                    ref.flash_attention_ref(q, k, v, window=w, softcap=cap),
-                    ref.flash_attention_ref(q, k, v.abs(), window=w, softcap=cap),
-                )["max_err_over_bar"] for (q, k, v), w, cap in small_inputs)
-        q, k, v = qkv(1, chip_smoke.LM_SEQ, 32, 16, 128)
         cases = {"global": (0, 50.0), "window4096": (4096, 50.0), "no_softcap": (0, None)}
-        current["fn"] = fns["kernel"]
-        base = {c: fa.flash_attention(q, k, v, window=w, softcap=cap)
-                for c, (w, cap) in cases.items()}
-        same = {}
-        for name, fn in fns.items():
-            current["fn"] = fn
-            same[name] = all(torch.equal(fa.flash_attention(q, k, v, window=w, softcap=cap),
-                                         base[c]) for c, (w, cap) in cases.items())
-        times = {name: {c: [] for c in cases} for name in fns}
-        for name in list(fns) + list(fns)[::-1]:
-            current["fn"] = fns[name]
-            for c, (w, cap) in cases.items():
-                times[name][c].append(autotune.device_time_ms(
-                    lambda: fa.flash_attention(q, k, v, window=w, softcap=cap), REPS))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = autotune.device_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), REPS)
+        worst, same, times = {}, {}, {}
+        for dtype, lib_fns in fns.items():
+            label = str(dtype).split(".")[-1]
+            small_inputs = [(qkv(*sh, dtype), w, cap) for sh, w, cap in small]
+            worst[label] = {}
+            for name, fn in lib_fns.items():
+                current["fn"] = fn
+                worst[label][name] = max(error(q, k, v, w, cap)
+                                         for (q, k, v), w, cap in small_inputs)
+            del small_inputs
+            q, k, v = qkv(1, chip_smoke.LM_SEQ, 32, 16, 128, dtype)
+            current["fn"] = lib_fns["kernel"]
+            base = {c: fa.flash_attention(q, k, v, window=w, softcap=cap)
+                    for c, (w, cap) in cases.items()}
+            same[label] = {}
+            for name, fn in lib_fns.items():
+                current["fn"] = fn
+                same[label][name] = all(
+                    torch.equal(fa.flash_attention(q, k, v, window=w, softcap=cap), base[c])
+                    for c, (w, cap) in cases.items())
+            del base
+            times[label] = {name: {c: [] for c in cases} for name in lib_fns}
+            for name in list(lib_fns) + list(lib_fns)[::-1]:
+                current["fn"] = lib_fns[name]
+                for c, (w, cap) in cases.items():
+                    times[label][name][c].append(autotune.device_time_ms(
+                        lambda: fa.flash_attention(q, k, v, window=w, softcap=cap), REPS))
+            del q, k, v
+            torch.cuda.empty_cache()
     finally:
         fa._launch.c_entry = real_entry
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(gpu_name_and_power_limit())
     print(json.dumps({"shape": [1, chip_smoke.LM_SEQ, 32, 16, 128], "times_ms": times,
-                      "sdpa_no_softcap_ms": sdpa, "small_worst_over_bar": worst,
-                      "bitwise_equal_to_kernel": same, "ptxas_hd128_softcap": ptxas,
-                      "nvidia_smi": smi,
+                      "small_worst_over_bar": worst, "bitwise_equal_to_kernel": same,
+                      "ptxas_hd128": ptxas, "nvidia_smi": smi,
                       "timing": f"median of {REPS} calls between CUDA events, in turns"}))
     return 0
 
