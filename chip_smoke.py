@@ -9,22 +9,26 @@ Phases, each printing one JSON line:
 
   build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh;
            ptxas's report of every kernel (the float32 flash kernel's by
-           head dim: no spill at hd 128), and for every sortscan
-           instantiation its registers, shared memory, stack and spills and
-           its SASS count of barriers, shared- and local-memory ops and
-           shuffles (none of the first three may appear; no spill at
-           E <= 8 slots a lane).
+           head dim: no spill at hd 128), and for every sortscan and
+           bisect instantiation its registers, shared memory, stack and
+           spills and its SASS count of barriers, shared- and local-memory
+           ops and shuffles (none may spill or touch local memory; the
+           kernels of rows of L <= 256 use no barrier and no shared
+           memory).
   kernels  each CUDA kernel against its plain PyTorch version on the card
            (the projections also against the float64 oracle), at the shapes
            the main path gives it, with CUDA-event times, bounds and the
            launch floor (an empty kernel on the launch's grid); the sortscan
            kernels also at every legal row block; the fused step's bisect
-           branch also against its sortscan method.
+           branch also against its sortscan method; proj_bisect bit for bit
+           against a float32 emulation of its sums' order (the copy of
+           tests/_bisect_network.py below) at widths 1 to 4096.
   autotune the kernel-tuning path: kernels.autotune.tune at the main path's
            shapes, stored in a fresh temporary cache; the bisect A/B at each
-           winner's row block (or the largest below it that the bisect
-           layout takes); and every legal row block of both sortscan
-           kernels against row_block = 1, bit for bit.
+           winner's row block (both methods take the same row blocks); and
+           every legal row block of the four projection kernels (both
+           methods, fused and standalone) against row_block = 1, bit for
+           bit.
   fig2     simulator.run_all at the paper's Fig. 2 config (Tab. 2), every
            average reward against the JAX reference's, the fused trajectory
            against the spec-level reference backend, and a profile of the
@@ -157,10 +161,20 @@ PROJ_PLAIN_ATOL = 2e-6
 BISECT_ATOL = 5e-5
 CAPACITY_SLACK = 1e-4       # sum(y) <= c + this for a bisection's output
 TIMING_REPS = 25
-# SASS opcodes reported for the sortscan kernels, beside their total:
-# barriers, shared and local memory (none may appear) and the shuffles that
-# replace them
+# SASS opcodes reported for the sortscan and bisect kernels, beside their
+# total: barriers, shared and local memory (none may appear at L <= 256)
+# and the shuffles that replace them
 SASS_OPS = ("BAR", "LDS", "STS", "LDL", "STL", "SHFL")
+# bisect kernel instantiations of rows of L <= 256, (W, Q) = (16, 1),
+# (32, 1), (32, 2), (32, 4), (32, 8) for the fused step and the projection
+# in float32 and bf16; and of the wide rows, (512, Q) for Q = 1, 2, 4, 8
+BISECT_INSTANTIATIONS = 15
+BISECT_WIDE_INSTANTIATIONS = 12
+# proj_bisect against the emulation of its sums' order, bit for bit: the
+# widths of tests/test_torch_bisect_layout.py, 333 rows each (on a few rows
+# in a hundred another order of the sums changes the bits)
+BISECT_NETWORK_LS = (1, 2, 7, 10, 16, 17, 33, 100, 256, 257, 1000, 4096)
+BISECT_NETWORK_ROWS = 333
 # sortscan kernel instantiations in registers: (16, 2) and (32, E) for
 # E = 2 .. 16, fused and standalone; and the two one-block-a-row kernels of
 # the wide rows, which use shared memory and barriers by design
@@ -541,6 +555,75 @@ def sortscan_layout_of(name: str):
     import re
     hit = re.search(r"(oga_step_sortscan_kernel|proj_sortscan_kernel)ILi(\d+)ELi(\d+)EE", name)
     return (hit.group(1), int(hit.group(2)), int(hit.group(3))) if hit else None
+
+
+def bisect_layout_of(name: str):
+    """(kernel, operand type, W threads a row, Q ports a thread) of a bisect
+    kernel's mangled name, or None for any other kernel."""
+    import re
+    hit = re.search(r"(oga_step_bisect_kernel|proj_bisect_kernel)I(f|\d+__nv_bfloat16)?"
+                    r"Li(\d+)ELi(\d+)EE", name)
+    if not hit:
+        return None
+    dtype = {None: "float32", "f": "float32"}.get(hit.group(2), "bf16")
+    return hit.group(1), dtype, int(hit.group(3)), int(hit.group(4))
+
+
+def bisect_network_project(z, a, m, c, iters: int):
+    """``proj_bisect_kernel``'s result in float32 numpy, its sums in the
+    kernel's order (csrc/bisect.cuh): a thread's ports j + W q in order,
+    then the xor butterfly over the row's W lanes (a wide row's 16 warps
+    each so, then a butterfly over their sums). The copy in this script of
+    tests/_bisect_network.py, which tests/test_torch_bisect_layout.py holds
+    to it bit for bit."""
+    f32 = np.float32
+    n, L = z.shape
+    p = 32
+    while p < 2 * L:
+        p *= 2
+    w = 16 if L <= 16 else 32 if L <= 256 else 512
+    q = p // (2 * w)
+
+    def lanes(x):
+        out = np.zeros((n, w * q), f32)
+        out[:, :L] = x
+        return out.reshape(n, q, w).transpose(0, 2, 1)
+
+    def fly(x, op):
+        j, o = np.arange(x.shape[-1]), x.shape[-1] // 2
+        while o:
+            x, o = op(x, x[..., j ^ o]), o // 2
+        return x
+
+    def reduce(t, op):
+        if w > 32:
+            t = fly(t.reshape(n, w // 32, 32), op)[:, :, 0]
+        return fly(t, op)[:, 0]
+
+    def row_sum(v):
+        t = v[..., 0]
+        for k in range(1, q):
+            t = t + v[..., k]
+        return reduce(t, np.add)
+
+    clip = lambda v, hi: np.minimum(np.maximum(v, f32(0)), hi)
+    zl, al, ml = (lanes(np.asarray(x, f32)) for x in (z, a, m))
+    c = np.asarray(c, f32)
+    s_box = row_sum(clip(zl, al) * ml)
+    need = s_box > c
+    lo = np.maximum((s_box - c) / np.maximum(row_sum(ml), f32(1)), f32(0))
+    hi = np.maximum(reduce(np.where(ml > 0, zl, f32(-1e30)).max(-1), np.maximum), lo)
+    g = lambda tau: row_sum(clip(zl - tau[:, None, None], al) * ml)
+    for _ in range(iters):
+        mid = f32(0.5) * (lo + hi)
+        big = g(mid) > c
+        lo, hi = np.where(big, mid, lo), np.where(big, hi, mid)
+    glo, ghi = g(lo), g(hi)
+    tau = np.minimum(np.maximum(lo + (glo - c) * (hi - lo) / np.maximum(glo - ghi, f32(1e-30)),
+                                lo), hi)
+    tau = np.where(need, tau, f32(0))
+    z, a, m = (np.asarray(x, f32) for x in (z, a, m))
+    return clip(np.where(need[:, None], z - tau[:, None], z), a) * m
 
 
 def flash_sass_evidence(lib_path: str) -> dict:
@@ -1296,6 +1379,7 @@ def smoke(torch) -> dict:
           f"the float32 flash kernel spills at hd 128: {flash_build[128]}")
     # the sortscan kernels of L <= 256 work in registers and shuffles: no
     # shared memory, no barrier; no projection kernel spills at any width
+    # or touches local memory
     oga_lib = build.library_path("oga_step.cu")
     oga_ptxas = ptxas_by_kernel(oga_lib.with_suffix(".log").read_text())
     oga_sass = sass_ops_by_kernel(str(oga_lib))
@@ -1319,14 +1403,37 @@ def smoke(torch) -> dict:
           f"sortscan instantiations built: {sorted(sortscan_build)}")
     check(sorted(wide_build) == sorted(SORTSCAN_WIDE_KERNELS),
           f"wide sortscan kernels built: {sorted(wide_build)}")
-    projection_ptxas = {**oga_ptxas, **ptxas_by_kernel(
-        build.library_path("proj_bisect.cu").with_suffix(".log").read_text())}
-    for name, rep in projection_ptxas.items():
+    # the bisect kernels: the narrow ones in registers and shuffles as the
+    # sortscan's; the wide ones with one barrier a row sum
+    bisect_lib = build.library_path("proj_bisect.cu")
+    bisect_ptxas = ptxas_by_kernel(bisect_lib.with_suffix(".log").read_text())
+    bisect_sass = {**oga_sass, **sass_ops_by_kernel(str(bisect_lib))}
+    bisect_build, bisect_wide_build = {}, {}
+    for name, rep in {**oga_ptxas, **bisect_ptxas}.items():
+        layout = bisect_layout_of(name)
+        if layout is None:
+            continue
+        kern, dtype, W, Q = layout
+        ent = {**rep, "sass": {op: bisect_sass[name][op] for op in SASS_OPS + ("total",)}}
+        label = f"{kern}<{dtype},{W},{Q}>"
+        if W > autotune.WARP:
+            bisect_wide_build[label] = ent
+            continue
+        bisect_build[label] = ent
+        check(rep["smem_bytes"] == 0 and rep["barriers"] == 0
+              and ent["sass"]["BAR"] == ent["sass"]["LDS"] == ent["sass"]["STS"] == 0,
+              f"{label} uses shared memory or a barrier: {ent}")
+    check(len(bisect_build) == BISECT_INSTANTIATIONS,
+          f"bisect instantiations built: {sorted(bisect_build)}")
+    check(len(bisect_wide_build) == BISECT_WIDE_INSTANTIATIONS,
+          f"wide bisect instantiations built: {sorted(bisect_wide_build)}")
+    for name, rep in {**oga_ptxas, **bisect_ptxas}.items():
         check(rep["stack_bytes"] == rep["spill_store_bytes"] == rep["spill_load_bytes"] == 0,
               f"{name} spills: {rep}")
     check(all(ent["sass"]["LDL"] == ent["sass"]["STL"] == 0
-              for ent in list(sortscan_build.values()) + list(wide_build.values())),
-          "a sortscan kernel reads or writes local memory")
+              for ent in [*sortscan_build.values(), *wide_build.values(),
+                          *bisect_build.values(), *bisect_wide_build.values()]),
+          "a projection kernel reads or writes local memory")
 
     # -------------------------------------------------------------- kernels
     seeds = np.random.SeedSequence(20261017).spawn(8)
@@ -1576,7 +1683,7 @@ def smoke(torch) -> dict:
                           FP32_OPS_PER_S)
         wide_rows[str(L)] = {
             "N": N, "L": L, "slots": autotune.slots_for(L),
-            "threads": autotune.row_threads(L), "bisect_threads": autotune.row_threads(L, "bisect"),
+            "threads": autotune.row_threads(L),
             "smem_bytes": autotune.slots_for(L) * 12 + 8 * autotune.WIDE_THREADS // autotune.WARP,
             "rows_binding": n_need,
             "proj_sortscan": {"max_abs_err": err, "oracle_err": oracle_err,
@@ -1597,11 +1704,33 @@ def smoke(torch) -> dict:
                                           *sargs, tiling=bisect_pin))},
             "launch_floor_ms": floor_ms(N, L, 1),
         }
+    # proj_bisect against the emulation of its sums' order, bit for bit, at
+    # one row per block and at the largest legal block
+    bisect_network = {}
+    for L in BISECT_NETWORK_LS:
+        N = BISECT_NETWORK_ROWS
+        z, a, m, c = proj_inputs(np.random.default_rng([20261017, 3, L]), N, L, loose_every=3)
+        c[5] = 0.0               # zero capacity
+        z[7] = 0.0               # nothing asked
+        want = bisect_network_project(z, a, m, c, autotune.DEFAULT_BISECT_ITERS)
+        args = cuda(z, a, m, c)
+        big = max(rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L, "bisect"))
+        for rb in (1, big):
+            got = pb_kernel.proj_bisect(*args, row_block=rb).cpu().numpy()
+            differ = int((got != want).any(1).sum())
+            check(differ == 0, f"proj_bisect L={L} row_block={rb}: {differ} rows differ "
+                               f"from the emulation, max {float(np.abs(got - want).max())}")
+        check(bool((want[5] == 0.0).all() and (want[7] == 0.0).all()),
+              f"proj_bisect L={L}: zero-capacity or zero rows not exactly 0")
+        bisect_network[str(L)] = {"rows": N, "row_blocks": [1, big], "bitwise_equal": True,
+                                  "rows_binding": int(((np.clip(z, 0.0, a) * m).sum(1) > c).sum())}
     emit({"phase": "kernels", "row_block": autotune.DEFAULT_ROW_BLOCK,
           "oga_step_fused": oga_rows, "oga_step_fused_bisect": oga_bisect_rows,
           "proj_sortscan": proj_rows, "proj_bisect": bisect_rows,
           "wide_rows": wide_rows,
+          "bisect_network": bisect_network,
           "sortscan_kernels_build": sortscan_build, "wide_kernels_build": wide_build,
+          "bisect_kernels_build": bisect_build, "bisect_wide_kernels_build": bisect_wide_build,
           "oga_step_atol": OGA_STEP_ATOL, "proj_atol": PROJ_ATOL,
           "proj_plain_atol": PROJ_PLAIN_ATOL, "bisect_atol": BISECT_ATOL,
           "timing": f"ms: device time, median of {TIMING_REPS} back-to-back calls "
@@ -1640,9 +1769,9 @@ def smoke(torch) -> dict:
     for label, (N, L) in shapes.items():
         win, measured = autotune.tune("oga_step", N, L)
         check(autotune.lookup("oga_step", N, L) == win, f"oga_step {label}: winner not stored")
-        # the bisect A/B at the winner's row block, or the largest one the
-        # bisect layout (P threads a row) takes below it
-        ab_rb = autotune.fit_row_block(win.row_block, L, "bisect")
+        # the bisect A/B at the winner's row block: both methods take the
+        # same row blocks
+        ab_rb = win.row_block
         ab_cands = [autotune.KernelConfig(ab_rb, "bisect", it) for it in autotune.BISECT_ITERS]
         _, ab = autotune.tune("oga_step", N, L, cands=ab_cands, store=False)
         tuned[label] = {
@@ -1669,23 +1798,29 @@ def smoke(torch) -> dict:
     tune_launches = launches()
     for name, n in zip(names[:3], tune_launches):
         check(n > 0, f"{name} was not launched on the autotune path")
-    # every legal row block of both sortscan kernels gives the bits of one
-    # block per row, at every tuned shape and at a ragged row count
+    # every legal row block of the four projection kernels (both methods,
+    # fused and standalone) gives the bits of one block per row, at every
+    # tuned shape and at a ragged row count
     bitwise = {}
     for i, (label, (N, L)) in enumerate(shapes.items()):
         for n in (N, N - 5):
             sargs = step_inputs(np.random.default_rng(seeds[i]), n, L)
             sargs[-1][::3, 2] = 1e4  # the capacity binds on two rows in three
             pargs = cuda(*proj_inputs(np.random.default_rng(seeds[4]), n, L, loose_every=3))
-            base_s = og_kernel.oga_step_fused(*sargs, row_block=1)
-            base_p = ss_kernel.proj_sortscan(*pargs, row_block=1)
+            runs = {
+                "oga_step_fused": lambda rb: og_kernel.oga_step_fused(*sargs, row_block=rb),
+                "proj_sortscan": lambda rb: ss_kernel.proj_sortscan(*pargs, row_block=rb),
+                "oga_step_fused_bisect": lambda rb: og_kernel.oga_step_fused(
+                    *sargs, method="bisect", row_block=rb),
+                "proj_bisect": lambda rb: pb_kernel.proj_bisect(*pargs, row_block=rb),
+            }
+            base = {k: run(1) for k, run in runs.items()}
             rbs = [c.row_block for c in autotune.candidates("oga_step", n, L)]
+            check(set(rbs) == {c.row_block for c in autotune.candidates(
+                "oga_step", n, L, methods=("bisect",))}, f"row blocks differ at ({n}, {L})")
             for rb in rbs[1:]:
-                same_s = torch.equal(og_kernel.oga_step_fused(*sargs, row_block=rb), base_s)
-                same_p = torch.equal(ss_kernel.proj_sortscan(*pargs, row_block=rb), base_p)
-                check(same_s and same_p,
-                      f"row_block={rb} changes the bits at ({n}, {L}): "
-                      f"oga_step_fused {same_s}, proj_sortscan {same_p}")
+                same = {k: torch.equal(run(rb), base[k]) for k, run in runs.items()}
+                check(all(same.values()), f"row_block={rb} changes the bits at ({n}, {L}): {same}")
             bitwise[f"{n}x{L}"] = rbs
     emit({"phase": "autotune", "cache": "fresh temporary directory",
           "oga_step": tuned, "proj": tuned_proj, "seconds": tune_s,

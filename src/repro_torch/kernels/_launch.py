@@ -28,12 +28,10 @@ def check_row_block(row_block: int, L: int, method: str) -> int:
     """``row_block`` if a block of that many rows of width ``L`` launches
     with ``method`` (``autotune.legal_row_block``); raises otherwise."""
     if not autotune.legal_row_block(row_block, L, method):
-        limit = (autotune.SORTSCAN_MAX_THREADS if method == "sortscan"
-                 else autotune.MAX_THREADS)
         raise ValueError(
             f"row_block={row_block} does not launch at L={L} with {method}: rows "
             f"per block must be a power of two in {autotune.ROW_BLOCKS} and a block "
-            f"of them at most {limit} threads"
+            f"of them at most {autotune.SORTSCAN_MAX_THREADS} threads"
         )
     return row_block
 

@@ -7,23 +7,21 @@ Counterpart of ``repro.kernels.autotune``, for Hopper.
 
 Layout. A row of L lanes, 1 <= L <= ``MAX_L``, has P = ``slots_for(L)``
 breakpoint slots: the next power of two at or above 2L, and never below
-one warp. The two projection methods lay a row out differently:
+one warp. Both projection methods lay a row out alike
+(``csrc/sortscan.cuh``, ``csrc/bisect.cuh``): a row of L <= ``WIDE_L``
+lanes is ``lanes_per_row(L)`` lanes of one warp, at L <= 16 half a warp,
+so ``rows_per_warp(L)`` = 2. Each lane holds ``slots_per_lane(L)`` slots
+in registers: the sortscan sorts them, the bisection keeps half as many
+ports (z, a and m). A block holds ``row_block`` rows in whole warps and
+uses no shared memory. A wider row is one block of ``WIDE_THREADS``
+threads (the sortscan's slots in shared memory; the bisection's ports in
+registers, up to MAX_L / WIDE_THREADS a thread), so its row block is 1 and
+the tuner has nothing to choose.
 
-* sortscan (``csrc/sortscan.cuh``): a row of L <= ``WIDE_L`` lanes is
-  ``lanes_per_row(L)`` lanes of one warp, each holding
-  ``slots_per_lane(L)`` slots in registers; at L <= 16 that is half a warp,
-  so ``rows_per_warp(L)`` = 2. A block holds ``row_block`` rows in whole
-  warps and uses no shared memory. A wider row is one block of
-  ``WIDE_THREADS`` threads with its slots in shared memory, so its row
-  block is 1 and the tuner has nothing to choose.
-* bisect (``csrc/bisect.cuh``): a row is min(P, ``MAX_THREADS``) threads,
-  up to ``BISECT_LANES`` lanes each (one up to L = 512), with one float of
-  shared memory per warp; a block holds ``row_block`` such rows.
-
-``legal_row_block(row_block, L, method)`` is the launch test of each. The
-grid is ceil(N / row_block) blocks. Every row reduces and synchronises on
-its own, so a row's arithmetic, and hence its bits, do not depend on
-``row_block``.
+``legal_row_block(row_block, L, method)`` is the launch test, the same for
+both methods. The grid is ceil(N / row_block) blocks. Every row reduces
+with its own lanes' shuffles, so a row's arithmetic, and hence its bits,
+do not depend on ``row_block``.
 
 Contract, in dispatch order:
 
@@ -68,12 +66,9 @@ MAX_THREADS = 1024        # threads a Hopper block may hold
 MAX_L = 4096
 NARROW_L = 16             # sortscan rows of at most this many lanes: two per warp
 WIDE_L = 256              # sortscan rows wider than this: one block a row
-WIDE_THREADS = 512        # threads of a wide sortscan row's block
-BISECT_LANES = MAX_L // MAX_THREADS  # lanes one bisect thread holds at most
-# threads of a sortscan block, so ptxas may give each up to 128 registers
+WIDE_THREADS = 512        # threads of a wide row's block
+# threads of a projection block, so ptxas may give each up to 128 registers
 SORTSCAN_MAX_THREADS = 512
-# dynamic shared memory a block may take without the opt-in attribute
-SMEM_BUDGET = 48 * 1024
 # rows per block: powers of two up to a block of one-warp rows
 ROW_BLOCKS = tuple(1 << i for i in range((MAX_THREADS // WARP).bit_length()))
 DEFAULT_ROW_BLOCK = 1     # one block per row: the untuned layout
@@ -156,51 +151,28 @@ def _check_method(method: str) -> None:
 @functools.cache
 def row_threads(L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
     """Threads of one row, the ``threads`` the C entries take: the row's
-    lanes for sortscan, min(P, MAX_THREADS) for bisect."""
+    lanes, for either method."""
     _check_method(method)
-    return lanes_per_row(L) if method == "sortscan" else min(slots_for(L), MAX_THREADS)
+    return lanes_per_row(L)
 
 
 def block_threads(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> int:
-    """Threads of a block of ``row_block`` rows: whole warps for sortscan (a
-    lone row of 16 lanes leaves half its warp idle), row_block *
-    ``row_threads`` for bisect."""
-    t = row_block * row_threads(L, method)
-    return -(-t // WARP) * WARP if method == "sortscan" else t
-
-
-def bisect_smem_bytes(p: int) -> int:
-    """Shared memory of one bisect row of ``p`` threads: one float per warp.
-    The same formula as ``bisect_smem_bytes`` in ``csrc/bisect.cuh``; the
-    sortscan kernels use none."""
-    return (p // WARP) * 4
+    """Threads of a block of ``row_block`` rows: whole warps (a lone row of
+    16 lanes leaves half its warp idle)."""
+    return -(-row_block * row_threads(L, method) // WARP) * WARP
 
 
 @functools.cache
 def legal_row_block(row_block: int, L: int, method: str = DEFAULT_PROJ_METHOD) -> bool:
     """Whether a block of ``row_block`` rows of width ``L`` launches with
-    ``method``: a power of two in ROW_BLOCKS; sortscan: at most
-    SORTSCAN_MAX_THREADS threads (so 1 for a wide row); bisect: at most
-    MAX_THREADS threads and its shared memory within SMEM_BUDGET.
-    ``legal_sortscan_launch`` and
-    ``legal_bisect_launch`` in ``csrc/`` are the same tests. Cached, as is
-    ``row_threads``: every kernel launch asks both."""
+    ``method``: a power of two in ROW_BLOCKS, and at most
+    SORTSCAN_MAX_THREADS threads (so 1 for a wide row). Both methods take
+    the same rule; ``legal_sortscan_launch`` in ``csrc/sortscan.cuh`` is the
+    same test. Cached, as is ``row_threads``: every kernel launch asks
+    both."""
     _check_method(method)
-    if row_block not in ROW_BLOCKS:
-        return False
-    if method == "sortscan":
-        return block_threads(row_block, L, method) <= SORTSCAN_MAX_THREADS
-    p = row_threads(L, method)
-    return (row_block * p <= MAX_THREADS
-            and row_block * bisect_smem_bytes(p) <= SMEM_BUDGET)
-
-
-def fit_row_block(row_block: int, L: int, method: str) -> int:
-    """The largest row block at most ``row_block`` that ``method`` takes at
-    width ``L``: a row block tuned for one method, run by the other. Every
-    row block legal for bisect is legal for sortscan; not the reverse."""
-    return max(rb for rb in ROW_BLOCKS
-               if rb <= row_block and legal_row_block(rb, L, method))
+    return (row_block in ROW_BLOCKS
+            and block_threads(row_block, L, method) <= SORTSCAN_MAX_THREADS)
 
 
 class KernelConfig(NamedTuple):

@@ -12,8 +12,9 @@
 // lanes in W lanes of a warp, E breakpoint slots per lane (sortscan.cuh:
 // two rows per warp at L <= 16), and a wider row in one block with its
 // slots in shared memory (the *_wide kernels, row_block 1); the bisect
-// kernel in min(P, 1024) threads, P = slots_for(L), up to four lanes each
-// (bisect.cuh). For each of its ports a thread computes
+// kernel in the same lanes (one block of kWideThreads threads for a wide
+// row), holding its ports' z, a and m in registers (bisect.cuh). For each
+// of its ports a thread computes
 //   g = f'(y m) - beta 1{k = k*_l}          (eq. 30, all seven kinds)
 //   z = y + eta x g m                       (Alg. 1 step 5)
 // and the row projects itself (steps 6-31). The products and sums of z
@@ -40,7 +41,6 @@ constexpr int kScalCols = 5;
 // Projection methods, in the order of kernels/autotune.py PROJ_METHODS.
 constexpr int kSortscan = 0;
 constexpr int kBisect = 1;
-constexpr int kMaxIters = 64;
 
 // (f_r^k)'(y) of core/utilities.py util_grad, kinds 0-6; 0 for any other.
 __device__ __forceinline__ float util_grad(int kind, float alpha, float y) {
@@ -107,39 +107,33 @@ oga_step_sortscan_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
-template <int kSync, int kLanes>
-__global__ void oga_step_bisect_kernel(const float* __restrict__ y,
-                                       const float* __restrict__ a,
-                                       const float* __restrict__ mask,
-                                       const float* __restrict__ x,
-                                       const float* __restrict__ kstar,
-                                       const float* __restrict__ scal,
-                                       float* __restrict__ out, int n, int L, int p, int iters) {
-  extern __shared__ float smem[];
-  const auto g = row_group<kSync>(p);
-  const long long row = row_index(g);
-  if (row >= n) return;  // a whole row leaves: it waits at no barrier of another
-  const StepScalars s = step_scalars(scal, row);
-  BisectLanes<kLanes> lanes;
+template <int W, int Q>
+__global__ void __launch_bounds__(kSortscanMaxThreads)
+oga_step_bisect_kernel(const float* __restrict__ y, const float* __restrict__ a,
+                       const float* __restrict__ mask, const float* __restrict__ x,
+                       const float* __restrict__ kstar, const float* __restrict__ scal,
+                       float* __restrict__ out, int n, int L, int row_block, int iters) {
+  const SortscanRow r = sortscan_row<W>(row_block, n);
+  // every lane runs to the end: rows past n hold no port and store nothing
+  const StepScalars s = r.valid ? step_scalars(scal, r.row) : StepScalars{0, 0, 0, 0, 0};
+  BisectPorts<Q> p;
 #pragma unroll
-  for (int q = 0; q < kLanes; ++q) {
-    const int l = g.i + p * q;
-    lanes.has[q] = l < L;
-    lanes.z[q] = lanes.a[q] = lanes.m[q] = 0.0f;
-    if (lanes.has[q]) {
-      const long long idx = row * L + l;
-      lanes.a[q] = a[idx];
-      lanes.m[q] = mask[idx];
-      lanes.z[q] = ascend(s, y[idx], lanes.m[q], x[idx], kstar[idx]);
+  for (int q = 0; q < Q; ++q) {
+    const int l = r.j + W * q;
+    p.z[q] = p.a[q] = p.m[q] = 0.0f;
+    if (r.valid && l < L) {
+      const long long idx = r.row * L + l;
+      p.a[q] = a[idx];
+      p.m[q] = mask[idx];
+      p.z[q] = ascend(s, y[idx], p.m[q], x[idx], kstar[idx]);
     }
   }
   bool need;
-  const float tau = bisect_water_level(lanes, s.c, iters, bisect_row_smem(smem, g), g, &need);
+  const float tau = bisect_water_level<W, Q>(p, s.c, iters, &need);
 #pragma unroll
-  for (int q = 0; q < kLanes; ++q) {
-    if (lanes.has[q]) {
-      out[row * L + g.i + p * q] = bisect_fill(lanes.z[q], lanes.a[q], lanes.m[q], tau, need);
-    }
+  for (int q = 0; q < Q; ++q) {
+    const int l = r.j + W * q;
+    if (r.valid && l < L) out[r.row * L + l] = bisect_fill(p.z[q], p.a[q], p.m[q], tau, need);
   }
 }
 
@@ -213,8 +207,11 @@ proj_sortscan_wide_kernel(const float* __restrict__ z, const float* __restrict__
   }
 }
 
-// The dynamic shared memory of a wide launch, opting in above the default
-// 48 KiB; the CUDA error of the attribute call (0 when accepted).
+// The dynamic shared memory of a wide launch, opting in above the 48 KiB a
+// block gets without the attribute; the CUDA error of the attribute call
+// (0 when accepted).
+constexpr size_t kSmemBudget = 48 * 1024;
+
 template <typename Kernel>
 cudaError_t allow_wide_smem(Kernel kernel, size_t bytes) {
   if (bytes <= kSmemBudget) return cudaSuccess;
@@ -230,9 +227,8 @@ __global__ void empty_kernel() {}
 
 // Plain C interface, loaded with ctypes by kernels/_launch.py. Each returns
 // the CUDA error of the launch (0 when it was accepted). `threads` is the
-// threads of one row (kernels/autotune.py row_threads): W for sortscan
-// (kWideThreads for a wide row), min(P, 1024) for bisect; `row_block` the
-// rows per block.
+// threads of one row (kernels/autotune.py row_threads), the same for both
+// methods: W (kWideThreads for a wide row); `row_block` the rows per block.
 extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
                               const float* x, const float* kstar, const float* scal,
                               float* out, int n, int L, int threads, int row_block,
@@ -240,10 +236,10 @@ extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
   using namespace repro_torch;
   const auto st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + row_block - 1) / row_block;
+  if (!legal_sortscan_launch(n, L, threads, row_block)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (method == kSortscan) {
-    if (!legal_sortscan_launch(n, L, threads, row_block)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
     if (L > kWideL) {
       const size_t smem = wide_smem_bytes(L);
       const cudaError_t err = allow_wide_smem(oga_step_sortscan_wide_kernel, smem);
@@ -258,13 +254,11 @@ extern "C" int repro_oga_step(const float* y, const float* a, const float* mask,
           y, a, mask, x, kstar, scal, out, n, L, row_block);
     });
   } else if (method == kBisect) {
-    if (!legal_bisect_launch(n, L, threads, row_block) || iters < 0 || iters > kMaxIters) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    with_bisect_layout(L, threads, row_block, [&](auto sync, auto lanes) {
-      oga_step_bisect_kernel<decltype(sync)::value, decltype(lanes)::value>
-          <<<blocks, row_block * threads, row_block * bisect_smem_bytes(threads), st>>>(
-              y, a, mask, x, kstar, scal, out, n, L, threads, iters);
+    if (iters < 0 || iters > kMaxIters) return static_cast<int>(cudaErrorInvalidValue);
+    with_bisect_layout(L, [&](auto w, auto q) {
+      constexpr int W = decltype(w)::value, Q = decltype(q)::value;
+      oga_step_bisect_kernel<W, Q><<<blocks, sortscan_block_threads(W, row_block), 0, st>>>(
+          y, a, mask, x, kstar, scal, out, n, L, row_block, iters);
     });
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

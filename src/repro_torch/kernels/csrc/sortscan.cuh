@@ -223,8 +223,10 @@ __device__ __forceinline__ SortscanRow sortscan_row(int row_block, int n) {
 
 // Butterflies over the W lanes of a row: every lane ends with the same
 // bits, because each step adds the same two values in both partner lanes.
-template <int W>
-__device__ __forceinline__ double group_sum(double v) {
+// Doubles for the sortscan water level, floats for the bisection
+// (bisect.cuh).
+template <int W, typename T>
+__device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
   for (int o = W / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o, W);
   return v;
@@ -234,6 +236,13 @@ template <int W>
 __device__ __forceinline__ double group_max(double v) {
 #pragma unroll
   for (int o = W / 2; o > 0; o >>= 1) v = dmax(v, __shfl_xor_sync(kFullMask, v, o, W));
+  return v;
+}
+
+template <int W>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o, W));
   return v;
 }
 

@@ -189,14 +189,12 @@ def oga_step_fused(y, a, mask, x, kstar, scal, *, tiling=None):
 
 
 def proj_bisect(z, a, mask, c, *, tiling=None):
-    """The bisection projection. The cache contributes the row block only,
-    cut to the largest the bisect layout takes (the table's winner may be
-    sortscan's); the iteration count stays the kernel's default unless
-    ``tiling`` pins it, so cache state never changes values."""
+    """The bisection projection. The cache contributes the row block only
+    (both methods take the same row blocks); the iteration count stays the
+    kernel's default unless ``tiling`` pins it, so cache state never
+    changes values."""
     cfg = _tiling("proj", z, tiling, iters=0)
-    rb = cfg.row_block if tiling is not None else _at.fit_row_block(
-        cfg.row_block, z.shape[-1], "bisect")
-    return _pb.proj_bisect(z, a, mask, c, row_block=rb, iters=cfg.iters or None)
+    return _pb.proj_bisect(z, a, mask, c, row_block=cfg.row_block, iters=cfg.iters or None)
 
 
 def proj_sortscan(z, a, mask, c, *, tiling=None):

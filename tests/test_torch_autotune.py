@@ -4,11 +4,9 @@ The contract of tests/test_autotune.py, for the port:
 
 * ``tune`` is deterministic given a fixed measurement table (ties go to
   the earlier candidate), and ``store=False`` publishes nothing;
-* the candidates are legal on Hopper in their method's layout: a sortscan
+* the candidates are legal on Hopper in the layout both methods share: a
   block of row_block rows in whole warps holds at most 512 threads and no
-  shared memory; a bisect block of row_block rows of P = slots_for(L)
-  threads holds at most 1024, its shared memory within the 48 KB a block
-  gets without the opt-in; and row_block is no larger than the row bucket;
+  shared memory, and row_block is no larger than the row bucket;
 * a torn, damaged, foreign or stale table is a miss, never a crash;
 * ``resolve`` never measures, and dispatch on CPU tensors never calls it;
 * winners publish through ``ckpt.atomic_write_json``, which leaves either
@@ -92,26 +90,22 @@ def test_default_config_is_the_untuned_layout():
 @pytest.mark.parametrize("n", [1, 5, 64, 768, 49152])
 @pytest.mark.parametrize("L", [1, 10, 16, 17, 33, 100, 129, 512])
 def test_candidates_are_legal_on_hopper(n, L):
-    """Each method's candidates launch in its own layout: sortscan rows in
-    whole warps (lanes_per_row lanes a row) of at most SORTSCAN_MAX_THREADS
-    and no shared memory; bisect rows of P threads, at most MAX_THREADS a
-    block and one float of shared memory per warp."""
+    """Both methods' candidates launch in the one layout: rows in whole
+    warps (lanes_per_row lanes a row), at most SORTSCAN_MAX_THREADS a block,
+    no shared memory; a wide row one block of WIDE_THREADS."""
     nb, pb = autotune.shape_bucket(n, L)
     assert pb == autotune.slots_for(L)
-    for method, limit in (("sortscan", autotune.SORTSCAN_MAX_THREADS),
-                          ("bisect", autotune.MAX_THREADS)):
+    limit = autotune.SORTSCAN_MAX_THREADS
+    for method in autotune.PROJ_METHODS:
         cands = autotune.candidates("oga_step", n, L, methods=(method,))
         assert cands and cands[0].row_block == 1
         for c in cands:
             threads = autotune.block_threads(c.row_block, L, method)
             assert threads % autotune.WARP == 0 and threads <= limit
-            if method == "sortscan" and L > autotune.WIDE_L:
+            if L > autotune.WIDE_L:
                 assert threads == autotune.WIDE_THREADS   # one block a row
-            elif method == "sortscan":
-                assert threads == -(-c.row_block // autotune.rows_per_warp(L)) * autotune.WARP
             else:
-                assert threads == c.row_block * pb
-                assert c.row_block * autotune.bisect_smem_bytes(pb) <= autotune.SMEM_BUDGET
+                assert threads == -(-c.row_block // autotune.rows_per_warp(L)) * autotune.WARP
             assert c.row_block <= nb
             assert c.row_block & (c.row_block - 1) == 0
         # every legal power of two up to the bucket is offered
@@ -130,7 +124,7 @@ def test_candidate_row_blocks_at_the_main_path_widths():
     assert rbs(64, autotune.WIDE_L) == [1, 2, 4, 8, 16]
     assert rbs(64, autotune.MAX_L) == [1]            # one block a row
     assert rbs(768, 10, "bisect") == [1, 2, 4, 8, 16, 32]
-    assert rbs(6144, 100, "bisect") == [1, 2, 4]    # 256 threads a row
+    assert rbs(6144, 100, "bisect") == [1, 2, 4, 8, 16]    # sortscan's rule
     assert rbs(64, autotune.MAX_L, "bisect") == [1]
 
 
@@ -145,14 +139,26 @@ def test_candidate_row_blocks_at_the_main_path_widths():
     (2, 512, "sortscan", False),
     (3, 10, "sortscan", False),     # not a power of two
     (0, 10, "sortscan", False),
-    (32, 10, "bisect", True),       # 32 rows of 32 threads: 1024
-    (4, 100, "bisect", True),       # 4 rows of 256 threads
-    (8, 100, "bisect", False),      # 2048 threads
+    (32, 10, "bisect", True),       # 32 rows of 16 lanes: 512 threads
+    (4, 100, "bisect", True),       # 4 one-warp rows
+    (8, 100, "bisect", True),       # 8 one-warp rows: 256 threads
+    (32, 100, "bisect", False),     # 1024 threads > SORTSCAN_MAX_THREADS
     (1, 512, "bisect", True),
     (2, 512, "bisect", False),
 ], ids=lambda v: str(v))
 def test_legal_row_block_per_method(row_block, L, method, legal):
     assert autotune.legal_row_block(row_block, L, method) is legal
+
+
+def test_both_methods_take_one_launch_rule():
+    """The bisection runs on the sortscan layout: at every width the kernels
+    take, every row block is legal for both methods or for neither, and a
+    row has the same threads."""
+    for L in range(1, autotune.MAX_L + 1):
+        assert autotune.row_threads(L, "bisect") == autotune.row_threads(L, "sortscan")
+        for rb in autotune.ROW_BLOCKS:
+            assert (autotune.legal_row_block(rb, L, "bisect")
+                    == autotune.legal_row_block(rb, L, "sortscan")), (rb, L)
 
 
 def test_candidates_bisect_enumerates_iters():
@@ -218,7 +224,7 @@ def test_damaged_table_is_a_miss_not_a_crash(payload):
 @pytest.mark.parametrize("L,ent_kw", [
     (10, {"row_block": 24}),          # not a power of two
     (10, {"row_block": 64}),          # 64 rows x 32 threads > 1024
-    (100, {"row_block": 8, "method": "bisect"}),  # 8 bisect rows x 256 threads > 1024
+    (100, {"row_block": 32, "method": "bisect"}),  # 32 bisect rows x 32 lanes > 512
     (100, {"row_block": 32}),         # 32 sortscan rows x 32 threads > 512
     (10, {"row_block": "8"}),         # wrong type
     (10, {"row_block": True}),        # a bool is not a row count
@@ -226,7 +232,7 @@ def test_damaged_table_is_a_miss_not_a_crash(payload):
     (10, {"method": "quickselect"}),  # unknown method
     (10, {"iters": -3}),              # out of range
     (10, {"iters": 999}),
-], ids=["rb24", "rb64", "rb8-wide", "rb32-wide", "str-rb", "bool-rb", "none-rb", "method",
+], ids=["rb24", "rb64", "rb32-bisect", "rb32-wide", "str-rb", "bool-rb", "none-rb", "method",
         "neg-iters", "huge-iters"])
 def test_malformed_or_illegal_entry_is_a_miss(L, ent_kw):
     _write_cache(_entry(L, **ent_kw))
@@ -349,22 +355,23 @@ def test_dispatch_forces_sortscan_even_if_cache_says_bisect(monkeypatch):
     assert autotune.cache_stats()["misses"] == 0
 
 
-@pytest.mark.parametrize("L,tuned,want", [(100, 8, 4), (100, 2, 2), (10, 32, 32),
-                                           (autotune.WIDE_L, 16, 2)])
+@pytest.mark.parametrize("L,tuned,want", [(100, 8, 8), (100, 2, 2), (10, 32, 32),
+                                           (autotune.WIDE_L, 16, 16)])
 def test_dispatch_fits_a_sortscan_row_block_to_bisect(monkeypatch, L, tuned, want):
-    """A sortscan winner of the "proj" table may be a row block the bisect
-    layout refuses (P threads a row): dispatch runs the bisection at the
-    largest legal one below it, and an explicit tiling as pinned."""
+    """The "proj" table's winner is a sortscan row block, and the bisect
+    layout is the sortscan's: dispatch runs the bisection at the tuned row
+    block as it stands, and an explicit tiling as pinned."""
     N = 64
     autotune._store("proj", N, L, autotune.KernelConfig(tuned, "sortscan", 0), 1.0, {})
     calls = []
     monkeypatch.setattr(ops._pb, "proj_bisect", lambda *a, **kw: calls.append(kw))
     z = _fake_cuda(N, L)
     ops.proj_bisect(z, z, z, z)
-    assert calls == [{"row_block": want, "iters": None}]
+    ops.proj_bisect(z, z, z, z, tiling=autotune.KernelConfig(1, "bisect", 28))
+    assert calls == [{"row_block": want, "iters": None}, {"row_block": 1, "iters": 28}]
     assert autotune.legal_row_block(want, L, "bisect")
-    assert autotune.fit_row_block(tuned, L, "bisect") == want
-    assert autotune.fit_row_block(tuned, L, "sortscan") == tuned
+    assert all(autotune.legal_row_block(rb, L, "bisect") == autotune.legal_row_block(rb, L)
+               for rb in autotune.ROW_BLOCKS)
 
 
 def test_cpu_dispatch_never_resolves(monkeypatch):

@@ -10,8 +10,9 @@ for the sortscan projection against the float64 oracle; 5e-5 for every
 bisection result (the reference's bar for its bisect kernel: the bracket
 width / 2^iters); none across row blocks, where the outputs are equal bit
 for bit, nor between the sortscan kernels and the float64 emulation of
-their register network (tests/_sortscan_network.py), which must agree bit
-for bit. Rows wider than 256 lanes (one block a row, slots in shared
+their register network (tests/_sortscan_network.py), nor between the
+bisect projection and the float32 emulation of its sums' order
+(tests/_bisect_network.py), which must agree bit for bit. Rows wider than 256 lanes (one block a row, slots in shared
 memory) at 1e-6 against the float64 oracle on every row, 2e-6 against the
 plain version and the fused step at 1e-5 against its plain version, both
 run on CPU copies of the inputs; rows of zero capacity or of z = 0 come
@@ -38,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import _bisect_network as bnet
 import _sortscan_network as net
 from repro_torch.core import ogasched
 from repro_torch.configs import base as tconfigs
@@ -194,9 +196,10 @@ def test_every_legal_row_block_gives_the_same_bits(dev, N, L):
     run in the same order whatever the block holds. A sortscan row that
     needs no projection beside one that does in a warp, the idle half-warp
     of a lone 16-lane row and the ragged last block (N % row_block != 0)
-    carry padding through every shuffle; a bisect row that needs no
-    projection leaves without stranding its neighbours at a barrier. Each
-    method runs every row block legal in its own layout."""
+    carry padding through every shuffle, for both methods (the bisection
+    runs on the sortscan layout, and a bisect row that needs no projection
+    beside one that does runs on with it). Each method runs every row block
+    legal for it."""
     z, a, m, c = _proj_args(_rng(5, N, L), N, L)
     pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
     sargs = _step_args(_rng(6, N, L), N, L, dev)
@@ -228,8 +231,8 @@ def test_wrappers_reject_tilings_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         toga.oga_step_fused(*args, method="bisect", iters=autotune.MAX_BISECT_ITERS + 1)
     z = torch.zeros((4, 100), device=dev)
-    with pytest.raises(ValueError):  # 8 rows x 256 threads > 1024
-        tpb.proj_bisect(z, z, z, torch.zeros(4, device=dev), row_block=8)
+    with pytest.raises(ValueError):  # 32 one-warp bisect rows > 512 threads
+        tpb.proj_bisect(z, z, z, torch.zeros(4, device=dev), row_block=32)
     with pytest.raises(ValueError):  # 32 one-warp sortscan rows > 512 threads
         tss.proj_sortscan(z, z, z, torch.zeros(4, device=dev), row_block=32)
     assert tss.proj_sortscan(z, z, z, torch.ones(4, device=dev), row_block=16).shape == (4, 100)
@@ -259,6 +262,32 @@ def test_sortscan_kernels_give_the_network_bits(dev, L):
                                    atol=2e-6, rtol=0)
         step = toga.oga_step_fused(*sargs, row_block=rb)
         torch.testing.assert_close(step, ref.oga_step_ref(*sargs), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("L", [1, 2, 7, 10, 16, 17, 33, 100, 256, 257, 1000, 4096])
+def test_proj_bisect_kernel_gives_the_network_bits(dev, L):
+    """The bisection's row sums in the kernel's order (lanes in order, then
+    the butterfly; a wide row's warps first) against their float32 numpy
+    emulation (tests/_bisect_network.py), bit for bit, at one row per block
+    and at the largest legal block, 333 rows (a ragged last block; on a few
+    rows in a hundred another order of the sums changes the bits); and the
+    fused step's bisect branch against its plain version (5e-5). Loose rows
+    beside binding ones, masked lanes, a fully masked row, a row of zero
+    capacity and a row of z = 0 (both exactly 0)."""
+    N = 333
+    z, a, m, c = bnet.case_inputs(_rng(18, L), N, L)
+    pargs = [torch.from_numpy(t).to(dev) for t in (z, a, m, c)]
+    want = bnet.project(z, a, m, c)
+    sargs = _step_args(_rng(19, L), N, L, dev)
+    sargs[-1][::2, 2] = 1e4
+    big = max(rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L, "bisect"))
+    for rb in (1, big):
+        got = tpb.proj_bisect(*pargs, row_block=rb).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert (got[5] == 0.0).all() and (got[7] == 0.0).all()
+        step = toga.oga_step_fused(*sargs, method="bisect", row_block=rb)
+        torch.testing.assert_close(step, ref.oga_step_ref(*sargs, proj="bisect"),
+                                   atol=BISECT_ATOL, rtol=0)
 
 
 WIDE_LS = [257, 300, 512, 1000, 4096]

@@ -138,7 +138,7 @@ def test_launch_constants():
     assert autotune.slots_for(10) == autotune.WARP
     assert autotune.slots_for(100) == 256
     assert autotune.slots_for(autotune.MAX_L) == 2 * autotune.MAX_L
-    assert autotune.row_threads(autotune.MAX_L, "bisect") == autotune.MAX_THREADS
+    assert autotune.row_threads(autotune.MAX_L, "bisect") == autotune.WIDE_THREADS
     with pytest.raises(ValueError):
         autotune.slots_for(autotune.MAX_L + 1)
 

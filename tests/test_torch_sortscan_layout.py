@@ -51,7 +51,7 @@ def test_layout_functions(L, rows_per_warp, lanes, slots):
     assert rows_per_warp * lanes == autotune.WARP
     assert net.layout(L) == (lanes, slots)
     assert autotune.row_threads(L, "sortscan") == lanes
-    assert autotune.row_threads(L, "bisect") == autotune.slots_for(L)
+    assert autotune.row_threads(L, "bisect") == lanes   # the bisect row is the sortscan's
 
 
 @pytest.mark.parametrize("L", [0, autotune.MAX_L + 1])
@@ -66,15 +66,16 @@ def test_layout_rejects_widths_outside_the_kernels(L):
 def test_wide_rows_take_one_block(L, slots):
     """Rows of WIDE_L < L <= MAX_L: one block of WIDE_THREADS threads, its
     P = slots_for(L) slots in shared memory, P / WIDE_THREADS a thread; row
-    block 1 for both methods (a bisect row of min(P, 1024) threads, up to
-    BISECT_LANES lanes each), so the tuner has one candidate."""
+    block 1 for both methods (the bisect row has sortscan's threads, each
+    holding half as many ports as slots, at most MAX_L / WIDE_THREADS), so
+    the tuner has one candidate."""
     assert autotune.MAX_L >= 4096 and autotune.WIDE_L == 256
     assert autotune.lanes_per_row(L) == autotune.row_threads(L) == autotune.WIDE_THREADS
     assert autotune.slots_per_lane(L) == slots
     assert slots * autotune.WIDE_THREADS == autotune.slots_for(L) >= 2 * L
     p = autotune.row_threads(L, "bisect")
-    assert p == min(autotune.slots_for(L), autotune.MAX_THREADS)
-    assert -(-L // p) <= autotune.BISECT_LANES
+    assert p == autotune.row_threads(L, "sortscan")
+    assert -(-L // p) <= slots // 2 <= autotune.MAX_L // autotune.WIDE_THREADS
     for method in autotune.PROJ_METHODS:
         assert [rb for rb in autotune.ROW_BLOCKS if autotune.legal_row_block(rb, L, method)] == [1]
     assert autotune.block_threads(1, L) == autotune.WIDE_THREADS
@@ -96,11 +97,11 @@ def test_slots_for_names_its_limit(L):
     (1, 100, 32), (16, 100, 512), (1, 256, 32), (1, 512, 512),
 ])
 def test_sortscan_blocks_are_whole_warps(row_block, L, threads):
-    """A sortscan block is counted in warps: two rows of L <= 16 share one,
-    and a lone such row leaves the other half of its warp idle."""
+    """A block is counted in warps, for both methods: two rows of L <= 16
+    share one, and a lone such row leaves the other half of its warp
+    idle."""
     assert autotune.block_threads(row_block, L, "sortscan") == threads
-    assert autotune.block_threads(row_block, L, "bisect") == row_block * min(
-        autotune.slots_for(L), autotune.MAX_THREADS)
+    assert autotune.block_threads(row_block, L, "bisect") == threads
 
 
 def test_layout_rejects_unknown_methods():

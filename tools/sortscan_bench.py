@@ -11,7 +11,9 @@ inputs of ``chip_smoke.py``'s kernels phase (the same seeds): the fused
 OGA step's sortscan method at (768, 10), (6144, 100) and (49152, 10) and
 the standalone sortscan projection at (768, 10) and (6144, 100), each at
 every row block the checkout's tuner offers; the bisect method of both at
-one row per block. Each time is the tuner's CUDA-event method
+the same shapes, 20 halvings, at every row block the checkout's tuner
+offers for it, and at the wide rows (96 rows of L = 4096, one block a
+row). Each time is the tuner's CUDA-event method
 (``autotune.device_time_ms``), median of 25 calls. Then the host's time
 of one call of the fused step's wrapper at (768, 10), 2000 calls queued
 back to back, and of its C entry alone (median of 3 each), and the
@@ -92,7 +94,8 @@ def main() -> int:
     build.build()
     cuda = lambda arrays: [torch.from_numpy(np.ascontiguousarray(t)).to(dev) for t in arrays]
     ms = lambda fn: autotune.device_time_ms(fn, REPS)
-    rbs = lambda kernel, N, L: sorted({c.row_block for c in autotune.candidates(kernel, N, L)})
+    rbs = lambda kernel, N, L, method="sortscan": sorted(
+        {c.row_block for c in autotune.candidates(kernel, N, L, methods=(method,))})
     seeds = np.random.SeedSequence(20261017).spawn(8)
     out = {"label": args.label or args.root, "torch": torch.__version__,
            "oga_step_fused": {}, "proj_sortscan": {}, "oga_step_bisect": {},
@@ -105,8 +108,9 @@ def main() -> int:
             "max_abs_err": err,
             "ms_by_row_block": {rb: ms(lambda: og.oga_step_fused(*t, row_block=rb))
                                 for rb in rbs("oga_step", N, L)}}
-        out["oga_step_bisect"][label] = ms(
-            lambda: og.oga_step_fused(*t, method="bisect", row_block=1))
+        out["oga_step_bisect"][label] = {
+            rb: ms(lambda: og.oga_step_fused(*t, method="bisect", row_block=rb))
+            for rb in rbs("oga_step", N, L, "bisect")}
     for i, (label, (N, L)) in enumerate({"fig2": (768, 10), "fig5": (6144, 100)}.items()):
         z, a, m, c = proj_inputs(np.random.default_rng(seeds[4 + i]), N, L)
         t = cuda((z, a, m, c))
@@ -117,7 +121,19 @@ def main() -> int:
             "ms_by_row_block": {rb: ms(lambda: ss.proj_sortscan(*t, row_block=rb))
                                 for rb in rbs("proj", N, L)}}
         tb = cuda(proj_inputs(np.random.default_rng(seeds[6 + i]), N, L, loose_every=5))
-        out["proj_bisect"][label] = ms(lambda: pb.proj_bisect(*tb, row_block=1))
+        out["proj_bisect"][label] = {rb: ms(lambda: pb.proj_bisect(*tb, row_block=rb))
+                                     for rb in rbs("proj", N, L, "bisect")}
+    # the wide rows of chip_smoke.py's kernels phase at L = 4096
+    rng = np.random.default_rng([20261017, 2, 4096])
+    z, a, m, c = proj_inputs(rng, 96, 4096, loose_every=5)
+    c[1::7] = 0.0
+    z[2::7] = 0.0
+    tb = cuda((z, a, m, c))
+    ts = cuda(step_inputs(rng, 96, 4096))
+    ts[-1][1::7, 2] = 0.0
+    out["proj_bisect"]["wide4096"] = {1: ms(lambda: pb.proj_bisect(*tb))}
+    out["oga_step_bisect"]["wide4096"] = {
+        1: ms(lambda: og.oga_step_fused(*ts, method="bisect", row_block=1))}
     # host time of one wrapper call at the Fig. 2 shape, launches queued
     # back to back (the host, not the card, sets the pace): what a slot pays
     t = cuda(step_inputs(np.random.default_rng(seeds[0]), 768, 10))
