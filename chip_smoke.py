@@ -17,14 +17,14 @@ Phases, each printing one JSON line:
            memory).
   kernels  each CUDA kernel against its plain PyTorch version on the card
            (the projections also against the float64 oracle), at the shapes
-           the main path gives it, with CUDA-event times, bounds and the
+           the main and stream paths give it, with CUDA-event times, bounds and the
            launch floor (an empty kernel on the launch's grid); the sortscan
            kernels also at every legal row block; the fused step's bisect
            branch also against its sortscan method; proj_bisect bit for bit
            against a float32 emulation of its sums' order (the copy of
            tests/_bisect_network.py below) at widths 1 to 4096.
-  autotune the kernel-tuning path: kernels.autotune.tune at the main path's
-           shapes, stored in a fresh temporary cache; the bisect A/B at each
+  autotune the kernel-tuning path: kernels.autotune.tune at the main and
+           stream paths' shapes, stored in a fresh temporary cache; the bisect A/B at each
            winner's row block (both methods take the same row blocks); and
            every legal row block of the four projection kernels (both
            methods, fused and standalone) against row_block = 1, bit for
@@ -54,7 +54,8 @@ Phases, each printing one JSON line:
            as they are (float32, head dim 16) on the card against the same
            call on the CPU, through the float32 kernel.
   lifecycle the job lifecycle at benchmarks/bench_lifecycle.py's
-           configuration (L 10, R 128, K 6, T 2000, work_mean 1200, seed 0):
+           configuration (L 10, R 128, K 6, work_mean 1200, seed 0; T cut
+           from 2000 to 1000):
            OGASCHED, the four heuristics and MULTICLASS through
            lifecycle.run, each with its µs per slot and summarize's metrics
            against the JAX reference's (LIFECYCLE_REFERENCE, with the port's
@@ -71,6 +72,27 @@ Phases, each printing one JSON line:
   grid_lifecycle  sweep.run_grid(mode="lifecycle") over 8 of the grid's 64
            Fig. 2 configs at T 200, faults off and on, each row against
            simulator.run_all(mode="lifecycle") of its config.
+  stream   benchmarks/bench_sweep.py's streamed grids (L 6, R 16, K 4,
+           T 100; OGASCHED and FAIRNESS): sweep_stream's loop over
+           10000 slot-mode configs in chunks of 256, "auto" resolving to
+           traces synthesized on the card (configs/s, overlap_ratio, peak
+           memory against grid_memory_bytes, 40 x 100 fused launches at
+           (16384, 6), the padded last chunk against a resident run); the
+           lifecycle grid (2000 configs) in chunks of 32 on device traces;
+           a profile of one chunk of each; host traces over the grid
+           phase's 64 configs in chunks of 16, OGASCHED's rows bit for bit
+           the grid phase's; device traces of 8 configs on the card
+           against the CPU (hash words and spec bit for bit).
+  resume   sweep_stream(checkpoint_dir=...) over 2048 of those configs in
+           a subprocess (this script with --resume-worker), killed with
+           SIGKILL once 2 chunks verify and resumed in a fresh process:
+           the surviving chunks untouched, the summaries bit for bit an
+           uninterrupted run's, a store of another grid refused.
+  regret_validation  benchmarks/bench_regret.py's quick Theorem-1 grid
+           (T 2048, 7 utilities x 2 regimes x 4 seeds, chunks of 16, 1500
+           oracle steps) through core.regret.regret_validation: every
+           cell against the JAX reference's pinned readings
+           (REGRET_REFERENCE), bound_ok true in every cell.
   lm_prefill  the LM serving path at gemma2-27b's full width: first the
            float32 check at 2 layers (prefill(S - 1) + serve_step against
            prefill(S)), then all 46 layers in bf16 from seeded random
@@ -86,7 +108,9 @@ capacity and of z = 0 that must come back exactly 0.
 fig2 to grid run on the warmed cache and must make no measurement and
 miss it never. The kernel launch counters are set to 0 before the autotune
 path and read after it, again for the main path (fig2 to grid), again for
-the lifecycle path (lifecycle, faults and grid_lifecycle) and again for
+the lifecycle path (lifecycle, faults and grid_lifecycle), again for the
+stream path (stream, resume and regret_validation: no autotune miss or
+measurement either; each part checks its launches by shape) and again for
 the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
 path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
 line before the last lists every kernel with its launches on each path
@@ -102,6 +126,7 @@ from __future__ import annotations
 
 import base64
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -297,10 +322,13 @@ SERVE_TIE_GAP = 2 * LM_BF16_DECODE_ATOL
 
 # The job lifecycle at benchmarks/bench_lifecycle.py:27 (the paper's
 # evaluation scale, work_mean 1200: jobs hold resources for many slots and
-# queues form), and the fault regimes of benchmarks/bench_faults.py:35 at
-# its quick configuration (bench_faults.py:55) with T cut from 1500 to 500
-# (heSRPT's 24 projections a slot cost ~20 ms of host time each slot).
-LIFECYCLE_CFG = dict(T=2000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
+# queues form) with T cut from 2000 to 1000 (the six policies' host time,
+# ~67 ms a slot together, made room for the stream path; the card's
+# events equalled the reference's over all 2000 slots), and the fault
+# regimes of benchmarks/bench_faults.py:35 at its quick configuration
+# (bench_faults.py:55) with T cut from 1500 to 500 (heSRPT's 24
+# projections a slot cost ~20 ms of host time each slot).
+LIFECYCLE_CFG = dict(T=1000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
 LIFECYCLE_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "multiclass")
 FAULTS_CFG = dict(T=500, L=10, R=64, K=6, seed=0, work_mean=600.0)
 FAULTS_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "hesrpt")
@@ -320,12 +348,12 @@ LIFECYCLE_EVENTS = os.path.join("tools", "lifecycle_reference_events.json")
 # which also writes LIFECYCLE_EVENTS.
 NAN = float("nan")
 LIFECYCLE_REFERENCE = {
-    'ogasched': {'completed': 7243.0, 'arrived': 7306.0, 'dropped': 6141.0, 'throughput': 3.6215, 'goodput': 4449.305, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.052602767944336, 'jct_p99': 75.0, 'slowdown_mean': 7.4750566482543945, 'utilization': 0.6153579354286194, 'utilization/0': 0.43881839513778687, 'utilization/1': 0.43934157490730286, 'utilization/2': 0.7330856919288635, 'utilization/3': 0.6815967559814453, 'utilization/4': 0.7005822658538818, 'utilization/5': 0.698722779750824, 'avg_reward': 3486.45849609375},
-    'drf': {'completed': 6744.0, 'arrived': 6813.0, 'dropped': 6634.0, 'throughput': 3.372, 'goodput': 4119.911, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.879152297973633, 'jct_p99': 69.0, 'slowdown_mean': 7.569123268127441, 'utilization': 0.7205255627632141, 'utilization/0': 0.4455622732639313, 'utilization/1': 0.6848637461662292, 'utilization/2': 0.8674356937408447, 'utilization/3': 0.7704409956932068, 'utilization/4': 0.7581070065498352, 'utilization/5': 0.7967437505722046, 'avg_reward': 3105.06640625},
-    'fairness': {'completed': 6918.0, 'arrived': 6988.0, 'dropped': 6459.0, 'throughput': 3.459, 'goodput': 4232.269, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.118532180786133, 'jct_p99': 143.830078125, 'slowdown_mean': 7.551406383514404, 'utilization': 0.7176170945167542, 'utilization/0': 0.44760051369667053, 'utilization/1': 0.6833022236824036, 'utilization/2': 0.8677917718887329, 'utilization/3': 0.7703258395195007, 'utilization/4': 0.7580080628395081, 'utilization/5': 0.7786741852760315, 'avg_reward': 3273.46435546875},
-    'binpacking': {'completed': 6750.0, 'arrived': 6820.0, 'dropped': 6627.0, 'throughput': 3.375, 'goodput': 4082.06075, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 21.03940773010254, 'jct_p99': 152.51025390625, 'slowdown_mean': 7.6496148109436035, 'utilization': 0.7187681794166565, 'utilization/0': 0.44075244665145874, 'utilization/1': 0.6830660104751587, 'utilization/2': 0.8670886754989624, 'utilization/3': 0.7708463668823242, 'utilization/4': 0.7561190128326416, 'utilization/5': 0.7947364449501038, 'avg_reward': 3050.881103515625},
-    'spreading': {'completed': 6835.0, 'arrived': 6907.0, 'dropped': 6540.0, 'throughput': 3.4175, 'goodput': 4070.815, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.746599197387695, 'jct_p99': 150.66015625, 'slowdown_mean': 7.568303108215332, 'utilization': 0.7183720469474792, 'utilization/0': 0.438859224319458, 'utilization/1': 0.6841219663619995, 'utilization/2': 0.8671298027038574, 'utilization/3': 0.7707628011703491, 'utilization/4': 0.7558305859565735, 'utilization/5': 0.7935279011726379, 'avg_reward': 3100.634765625},
-    'multiclass': {'completed': 7620.0, 'arrived': 7682.0, 'dropped': 5765.0, 'throughput': 3.81, 'goodput': 4659.606, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 17.641206741333008, 'jct_p99': 60.0, 'slowdown_mean': 7.372726917266846, 'utilization': 0.6769704222679138, 'utilization/0': 0.4445684254169464, 'utilization/1': 0.4443357586860657, 'utilization/2': 0.8628040552139282, 'utilization/3': 0.765011191368103, 'utilization/4': 0.7532891631126404, 'utilization/5': 0.7918137311935425, 'avg_reward': 3672.3203125},
+    'ogasched': {'completed': 3517.0, 'arrived': 3586.0, 'dropped': 3199.0, 'throughput': 3.517, 'goodput': 4419.375, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.719648361206055, 'jct_p99': 71.0, 'slowdown_mean': 7.6343865394592285, 'utilization': 0.6052642464637756, 'utilization/0': 0.4315599799156189, 'utilization/1': 0.45028117299079895, 'utilization/2': 0.7160739302635193, 'utilization/3': 0.6727064251899719, 'utilization/4': 0.6894002556800842, 'utilization/5': 0.6715636253356934, 'avg_reward': 3359.12060546875},
+    'drf': {'completed': 3383.0, 'arrived': 3453.0, 'dropped': 3332.0, 'throughput': 3.383, 'goodput': 4083.37375, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.32367706298828, 'jct_p99': 115.0, 'slowdown_mean': 7.470068454742432, 'utilization': 0.7171883583068848, 'utilization/0': 0.4377756416797638, 'utilization/1': 0.6794133186340332, 'utilization/2': 0.8674949407577515, 'utilization/3': 0.770229697227478, 'utilization/4': 0.757182240486145, 'utilization/5': 0.7910342812538147, 'avg_reward': 3059.02001953125},
+    'fairness': {'completed': 3508.0, 'arrived': 3581.0, 'dropped': 3204.0, 'throughput': 3.508, 'goodput': 4182.2975, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 19.801311492919922, 'jct_p99': 124.929931640625, 'slowdown_mean': 7.428719520568848, 'utilization': 0.7147977352142334, 'utilization/0': 0.4404500424861908, 'utilization/1': 0.6783817410469055, 'utilization/2': 0.8680346608161926, 'utilization/3': 0.7700400948524475, 'utilization/4': 0.7572470307350159, 'utilization/5': 0.7746330499649048, 'avg_reward': 3259.21435546875},
+    'binpacking': {'completed': 3371.0, 'arrived': 3445.0, 'dropped': 3340.0, 'throughput': 3.371, 'goodput': 4046.20475, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.66834831237793, 'jct_p99': 140.0, 'slowdown_mean': 7.535602569580078, 'utilization': 0.7150897979736328, 'utilization/0': 0.4321938753128052, 'utilization/1': 0.6772639751434326, 'utilization/2': 0.8669192790985107, 'utilization/3': 0.7702471017837524, 'utilization/4': 0.7549005746841431, 'utilization/5': 0.7890138030052185, 'avg_reward': 2998.41455078125},
+    'spreading': {'completed': 3389.0, 'arrived': 3462.0, 'dropped': 3323.0, 'throughput': 3.389, 'goodput': 4043.67275, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 20.676010131835938, 'jct_p99': 137.0, 'slowdown_mean': 7.524747848510742, 'utilization': 0.7148588299751282, 'utilization/0': 0.4308435022830963, 'utilization/1': 0.6779658794403076, 'utilization/2': 0.8668879866600037, 'utilization/3': 0.7702662944793701, 'utilization/4': 0.75505530834198, 'utilization/5': 0.7881340980529785, 'avg_reward': 3031.183837890625},
+    'multiclass': {'completed': 3842.0, 'arrived': 3908.0, 'dropped': 2877.0, 'throughput': 3.842, 'goodput': 4597.856, 'wasted_work': 0.0, 'evictions': 0.0, 'fault_drops': 0.0, 'jct_mean': 17.6595516204834, 'jct_p99': 65.0, 'slowdown_mean': 7.381320953369141, 'utilization': 0.6744717955589294, 'utilization/0': 0.4378211200237274, 'utilization/1': 0.4399919807910919, 'utilization/2': 0.8636510968208313, 'utilization/3': 0.765095055103302, 'utilization/4': 0.7522012591362, 'utilization/5': 0.7880700826644897, 'avg_reward': 3641.5322265625},
 }
 FAULTS_REFERENCE = {
     'none': {
@@ -391,6 +419,118 @@ GRID_LIFECYCLE_RTOL = 1e-4
 # Steps of the size-aware policies' fluid solve a slot
 # (core/baselines.py MULTICLASS_ITERS): one projection launch each.
 FLUID_ITERS = 24
+# The stream path. stream: benchmarks/bench_sweep.py's configuration
+# (CFG and ALGOS, bench_sweep.py:41-42) streamed as its full-scale run does
+# (bench_sweep.py:302-305): (a) 10000 slot-mode configs (seeds 0-9999) in
+# chunks of 256, "auto" resolving to device traces: one fused launch a
+# step at (16384, 6); (b) the lifecycle grid, chunks of 32, device traces,
+# over all its 2000 configs (36 s on the card: no cut): a fused and
+# a projection launch at (2048, 6) a OGASCHED slot, a projection a
+# FAIRNESS slot; (c) host traces: the grid phase's 64 Fig. 2 configs in
+# chunks of 16, (12288, 10), held to the grid phase's resident rows;
+# (d) device traces of 8 configs on the card against the same call on the
+# CPU: the hash words and the spec bit for bit (integer and correctly
+# rounded float32 arithmetic only), arrivals in at most
+# STREAM_ARRIVAL_FLIPS of their 4800 entries (p passes through sin, ~2 ulp
+# apart between the devices), job sizes within STREAM_WORKS_RTOL (pow),
+# fault multipliers off by more than 1e-6 in at most STREAM_FAULT_FLIPS of
+# their 3200 entries (a repair time passes through log). An H100 read 0
+# arrival flips, 0 fault flips and job sizes within 1.18e-7: the flip bars
+# allow two entries each, the job-size bar is ~8x its reading.
+# The slot stream's peak device memory above its start is held to
+# STREAM_PEAK_RATIO x grid_memory_bytes' total at the chunk (an H100 read
+# 5.81x: the model leaves out step temporaries and the hash words), so a
+# stream that kept chunks alive fails.
+STREAM_CFG = dict(T=100, L=6, R=16, K=4)
+STREAM_ALGORITHMS = ("ogasched", "fairness")
+STREAM_POINTS = 10_000
+STREAM_CHUNK = 256
+STREAM_LIFECYCLE_POINTS = 2000
+STREAM_LIFECYCLE_CHUNK = 32
+STREAM_HOST_CHUNK = 16
+STREAM_DEVICE_CONFIGS = 8
+STREAM_ARRIVAL_FLIPS = 2 / (STREAM_DEVICE_CONFIGS * STREAM_CFG["T"] * STREAM_CFG["L"])
+STREAM_WORKS_RTOL = 1e-6
+STREAM_FAULT_FLIPS = 2 / (STREAM_DEVICE_CONFIGS * STREAM_CFG["T"] * STREAM_CFG["K"])
+STREAM_PEAK_RATIO = 8.0
+# slots of a lifecycle chunk the stream phase profiles
+STREAM_PROFILE_SLOTS = 25
+# resume: the first RESUME_POINTS of those configs, chunks of 256, in a
+# subprocess (this script with --resume-worker) killed with SIGKILL once
+# RESUME_KILL_AFTER chunks verify (each chunk held RESUME_SLOW_S after its
+# reduction so the kill lands mid-sweep), resumed in a fresh process.
+RESUME_POINTS = 2048
+RESUME_CHUNK = 256
+RESUME_KILL_AFTER = 2
+RESUME_SLOW_S = 1.0
+RESUME_WAIT_S = 300
+# regret_validation: benchmarks/bench_regret.py's quick configuration
+# (bench_regret.py:28-44): 7 utilities x 2 regimes x seeds 0-3, chunks of
+# 16 (fused launches at (1024, 6)), 1500 oracle iterations (one
+# proj_sortscan launch each at (1024, 6)), 200 bootstrap resamples.
+REGRET_CFG = dict(T=2048, L=6, R=16, K=4, contention=10.0)
+REGRET_UTILITIES = ("linear", "log", "reciprocal", "poly", "pow25", "pow75", "expsat")
+REGRET_REGIMES = ("stationary", "flash")
+REGRET_SEEDS = (0, 1, 2, 3)
+REGRET_CHUNK = 16
+REGRET_ORACLE_ITERS = 1500
+REGRET_N_BOOT = 200
+REGRET_PROFILE_SHARE = 16
+# The JAX reference's readings of that grid on the CPU (jax 0.9.0), from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_regret_pins.py
+REGRET_REFERENCE = {
+    "linear/stationary": {"r_T_mean": 23012.80859375, "bound": 387565.01684602106,
+        "exponent": 0.07031876867518948, "bound_ok": True, "sublinear": True},
+    "linear/flash": {"r_T_mean": 21064.21484375, "bound": 387565.01684602106,
+        "exponent": 0.03482313475261777, "bound_ok": True, "sublinear": True},
+    "log/stationary": {"r_T_mean": 2178.5087890625, "bound": 387565.01684602106,
+        "exponent": 0.14590706781765309, "bound_ok": True, "sublinear": True},
+    "log/flash": {"r_T_mean": 1234.268798828125, "bound": 387565.01684602106,
+        "exponent": 0.02638283846252868, "bound_ok": True, "sublinear": True},
+    "reciprocal/stationary": {"r_T_mean": 72.57005310058594, "bound": 242281.8576902502,
+        "exponent": -0.03929442812359507, "bound_ok": True, "sublinear": True},
+    "reciprocal/flash": {"r_T_mean": -193.46884155273438, "bound": 242281.8576902502,
+        "exponent": -0.5372657583629019, "bound_ok": True, "sublinear": True},
+    "poly/stationary": {"r_T_mean": 1854.17919921875, "bound": 202431.81094912573,
+        "exponent": 0.1163448518388547, "bound_ok": True, "sublinear": True},
+    "poly/flash": {"r_T_mean": 996.6452026367188, "bound": 202431.81094912573,
+        "exponent": -0.007658773635872747, "bound_ok": True, "sublinear": True},
+    "pow25/stationary": {"r_T_mean": 252.59425354003906, "bound": 116925.32670597862,
+        "exponent": 0.24291198446887946, "bound_ok": True, "sublinear": True},
+    "pow25/flash": {"r_T_mean": -873.541259765625, "bound": 116925.32670597862,
+        "exponent": -1.3935344380142098, "bound_ok": True, "sublinear": True},
+    "pow75/stationary": {"r_T_mean": 9467.1572265625, "bound": 294092.37809146085,
+        "exponent": 0.1573478571932399, "bound_ok": True, "sublinear": True},
+    "pow75/flash": {"r_T_mean": 8536.2421875, "bound": 294092.37809146085,
+        "exponent": 0.11635762992329736, "bound_ok": True, "sublinear": True},
+    "expsat/stationary": {"r_T_mean": 1139.587890625, "bound": 387565.01684602106,
+        "exponent": 0.30305114937435024, "bound_ok": True, "sublinear": True},
+    "expsat/flash": {"r_T_mean": 327.77789306640625, "bound": 387565.01684602106,
+        "exponent": 0.03039485040014348, "bound_ok": True, "sublinear": True},
+}
+# Bars against those readings. The port on the CPU reaches, over all 14
+# cells (tests/_regret_pins.py --port), |r_T_mean - ref| = 1.9e-5 x the
+# bound (log/flash: 7.3 of a regret of 1234, the difference of two
+# cumulative rewards of ~4e5), |exponent - ref| = 1.05e-3 and
+# |bound - ref| = 4.3e-8 x the bound; each bar is ~5-20x that. The flags
+# must be equal.
+REGRET_R_T_BAR = 1e-4
+REGRET_EXPONENT_ATOL = 0.01
+REGRET_BOUND_RTOL = 1e-6
+
+
+def regret_errors(rec: dict, ref: dict) -> dict:
+    """A regret_validation record against its pinned reading: r_T_mean's
+    error over the bound, the exponent's absolute error (0 when both are
+    NaN: too low to fit), the bound's relative error, and whether the
+    flags agree."""
+    e, w = rec["exponent"], ref["exponent"]
+    both_nan = e != e and w != w
+    return {"r_T_mean": abs(rec["r_T_mean"] - ref["r_T_mean"]) / ref["bound"],
+            "exponent": 0.0 if both_nan else abs(e - w),
+            "bound": abs(rec["bound"] - ref["bound"]) / ref["bound"],
+            "flags_equal": (rec["bound_ok"], rec["sublinear"]) == (ref["bound_ok"],
+                                                                     ref["sublinear"])}
 
 
 def emit(obj) -> None:
@@ -1306,6 +1446,358 @@ def grid_lifecycle_phase(torch, dev) -> dict:
     return line
 
 
+def timed_stream(sweep, points, mode: str, chunk: int, trace_backend: str, rows: bool = False):
+    """``sweep.run_grid_stream`` driven as ``sweep_stream`` drives it (the
+    chunk's inputs dropped, each chunk reduced as it finishes), with its
+    ``stats``. Returns (wall_s, summary, overlap_ratio, rows): overlap_ratio
+    = 1 - chunk_wait_s / wall, rows the per-config rewards (slot mode) when
+    ``rows``."""
+    import torch
+
+    stats, parts, kept = {}, {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, batch, out in sweep.run_grid_stream(points, STREAM_ALGORITHMS, chunk_size=chunk,
+                                               mode=mode, trace_backend=trace_backend,
+                                               donate=True, stats=stats):
+        summ = sweep.summarize_lifecycle(out, batch) if mode == "lifecycle" \
+            else sweep.summarize(out)
+        for k, v in summ.items():
+            parts.setdefault(k, []).append(v)
+        if rows:
+            for n, r in out.items():
+                kept.setdefault(n, []).append(r.cpu().numpy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = {k: np.concatenate(v) for k, v in parts.items()}
+    overlap = 1.0 - stats.get("chunk_wait_s", 0.0) / wall
+    return wall, summary, overlap, {n: np.concatenate(v) for n, v in kept.items()}
+
+
+def summary_ok(summary: dict, n: int) -> bool:
+    return all(v.shape == (n,) and np.isfinite(v).all() for v in summary.values())
+
+
+def stream_phase(torch, dev, grid_points, grid_rows) -> dict:
+    """benchmarks/bench_sweep.py's streamed grids on the card: (a) 10000
+    slot-mode configs with device traces, (b) the lifecycle grid, (c) host
+    traces against the grid phase's resident rows, (d) device traces on the
+    card against the CPU."""
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.sched import sweep, trace, trace_device
+
+    t_phase = time.perf_counter()
+    cfg = trace.TraceConfig(**STREAM_CFG)
+    line = {"phase": "stream", "config": STREAM_CFG, "algorithms": list(STREAM_ALGORITHMS),
+            "card": gpu_name_and_power_limit()}
+    # (a) 10000 slot-mode configs, "auto" -> device traces
+    points = sweep.make_grid(cfg, seeds=range(STREAM_POINTS))
+    check(sweep.resolve_trace_backend("auto", len(points)) == "device",
+          "stream: 'auto' did not resolve to device traces at 10000 points")
+    n0 = launch_snapshot()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, summ, overlap, _ = timed_stream(sweep, points, "slot", STREAM_CHUNK, "auto")
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    launches = launch_delta(n0, launch_snapshot())
+    chunks = -(-STREAM_POINTS // STREAM_CHUNK)
+    n_rows = STREAM_CHUNK * cfg.R * cfg.K
+    check(launches["oga_step_fused"] == {f"{n_rows}x{cfg.L}": chunks * cfg.T},
+          f"stream slot: fused launches {launches['oga_step_fused']}")
+    check(summary_ok(summ, STREAM_POINTS), "stream slot: summaries not finite or misshapen")
+    # the padded last chunk's 16 configs, resident, against their streamed rows
+    tail = points[(chunks - 1) * STREAM_CHUNK:]
+    resident = sweep.summarize(sweep.run_grid(
+        sweep.build_batch(tail, trace_backend="device"), STREAM_ALGORITHMS))
+    tail_err = max(float(np.abs(resident[k] - v[-len(tail):]).max()
+                         / max(float(np.abs(resident[k]).max()), 1.0))
+                   for k, v in summ.items())
+    check(tail_err <= 1e-6, f"stream slot: the last chunk's rows vs resident {tail_err}")
+    # where one chunk's time goes: its trace synthesis and each algorithm
+    held = {}
+    chunk_profile = {"trace_device": device_profile(torch, lambda: held.setdefault(
+        "batch", sweep.build_batch(points[:STREAM_CHUNK], trace_backend="device")))}
+    for name in STREAM_ALGORITHMS:
+        chunk_profile[name] = device_profile(
+            torch, lambda: sweep.run_grid(held["batch"], (name,)), n_top=3)
+    del held
+    model = sweep.grid_memory_bytes(cfg, STREAM_CHUNK, algorithms=STREAM_ALGORITHMS, prefetch=2)
+    check(peak <= STREAM_PEAK_RATIO * model["total"],
+          f"stream slot: peak {peak} B above {STREAM_PEAK_RATIO} x the model's {model['total']}")
+    line["slot"] = {
+        "configs": STREAM_POINTS, "chunk": STREAM_CHUNK, "trace_backend": "device",
+        "wall_s": wall, "configs_per_s": STREAM_POINTS / wall, "overlap_ratio": overlap,
+        "peak_bytes": peak, "model_bytes": model,
+        "peak_over_model": peak / model["total"], "launches": launches,
+        "last_chunk_vs_resident": tail_err, "chunk_profile": chunk_profile,
+        "summary_mean": {k: float(v.mean()) for k, v in summ.items()}}
+    emit({"phase": "stream", "part": "slot", **line["slot"]})
+    # (b) the lifecycle grid, device traces
+    life = points[:STREAM_LIFECYCLE_POINTS]
+    n0 = launch_snapshot()
+    wall, summ, overlap, _ = timed_stream(sweep, life, "lifecycle", STREAM_LIFECYCLE_CHUNK,
+                                          "device")
+    launches = launch_delta(n0, launch_snapshot())
+    chunks = -(-len(life) // STREAM_LIFECYCLE_CHUNK)
+    shape = f"{STREAM_LIFECYCLE_CHUNK * cfg.R * cfg.K}x{cfg.L}"
+    check(launches == {"oga_step_fused": {shape: chunks * cfg.T},
+                       "proj_sortscan": {shape: 2 * chunks * cfg.T}},
+          f"stream lifecycle: launches {launches}")
+    check(summary_ok(summ, len(life)), "stream lifecycle: summaries not finite or misshapen")
+    check(bool((summ["completed/ogasched"] > 0).any()), "stream lifecycle: no job completed")
+    first = life[:STREAM_LIFECYCLE_CHUNK]
+    fb = sweep.build_batch(first, mode="lifecycle", trace_backend="device")
+    resident = sweep.summarize_lifecycle(
+        sweep.run_grid(fb, STREAM_ALGORITHMS, mode="lifecycle"), fb)
+    same = all(np.array_equal(v, summ[k][:len(first)], equal_nan=True)
+               for k, v in resident.items())
+    # where a chunk's time goes: its first STREAM_PROFILE_SLOTS slots
+    head = dataclasses.replace(fb, arrivals=fb.arrivals[:, :STREAM_PROFILE_SLOTS],
+                               works=fb.works[:, :STREAM_PROFILE_SLOTS])
+    chunk_profile = {name: device_profile(torch, lambda: sweep.run_grid(
+        head, (name,), mode="lifecycle"), n_top=3) for name in STREAM_ALGORITHMS}
+    del head
+    check(same, "stream lifecycle: the first chunk's summaries differ from a resident run")
+    line["lifecycle"] = {
+        "configs": len(life), "of": 2000, "chunk": STREAM_LIFECYCLE_CHUNK,
+        "trace_backend": "device", "wall_s": wall, "configs_per_s": len(life) / wall,
+        "overlap_ratio": overlap, "launches": launches, "first_chunk_bitwise_resident": same,
+        "chunk_profile": chunk_profile,
+        "summary_mean": {k: float(np.nanmean(v)) for k, v in summ.items()}}
+    emit({"phase": "stream", "part": "lifecycle", **line["lifecycle"]})
+    # (c) host traces: the grid phase's 64 configs against its resident rows
+    n0 = launch_snapshot()
+    wall, summ, overlap, rows = timed_stream(sweep, grid_points, "slot", STREAM_HOST_CHUNK,
+                                             "host", rows=True)
+    launches = launch_delta(n0, launch_snapshot())
+    g_cfg = grid_points[0].cfg
+    chunks = -(-len(grid_points) // STREAM_HOST_CHUNK)
+    check(launches["oga_step_fused"] == {
+        f"{STREAM_HOST_CHUNK * g_cfg.R * g_cfg.K}x{g_cfg.L}": chunks * g_cfg.T},
+        f"stream host: fused launches {launches['oga_step_fused']}")
+    check(np.array_equal(rows["ogasched"], grid_rows["ogasched"]),
+          "stream host: OGASCHED's streamed rows are not the grid phase's resident rows, "
+          f"max {float(np.abs(rows['ogasched'] - grid_rows['ogasched']).max())}")
+    fair_diff = float(np.abs(rows["fairness"] - grid_rows["fairness"]).max())
+    check(fair_diff <= TRAJ_TOL * float(np.abs(grid_rows["fairness"]).max()),
+          f"stream host: FAIRNESS rows vs resident {fair_diff}")
+    line["host"] = {"configs": len(grid_points), "chunk": STREAM_HOST_CHUNK,
+                    "trace_backend": "host", "wall_s": wall, "overlap_ratio": overlap,
+                    "launches": launches, "ogasched_bitwise_resident": True,
+                    "fairness_max_abs_diff": fair_diff}
+    emit({"phase": "stream", "part": "host", **line["host"]})
+    # (d) device traces on the card against the CPU
+    fc = trace.FaultConfig(fail_rate=0.02, drain_period=50, shock_rate=0.01)
+    cfgs = [dataclasses.replace(p.cfg, faults=fc) for p in points[:STREAM_DEVICE_CONFIGS]]
+    seeds = [c.seed for c in cfgs]
+    sizes = {"spec": (7, cfg.R * cfg.K), "arrivals": (3, cfg.T * cfg.L),
+             "works": (1, cfg.T * cfg.L), "faults": (4, cfg.T * cfg.K)}
+    bits_equal = {}
+    for stream, (n, size) in sizes.items():
+        on = [trace_device.stream_bits(torch.tensor(seeds, device=d), stream, (size,) * n)
+              for d in (dev, "cpu")]
+        bits_equal[stream] = all(torch.equal(a.cpu(), b) for a, b in zip(*on))
+    check(all(bits_equal.values()), f"stream devices: hash words differ {bits_equal}")
+    card = trace_device.make_batch(cfgs, with_works=True, with_faults=True, device=dev)
+    host = trace_device.make_batch(cfgs, with_works=True, with_faults=True, device="cpu")
+    spec_equal = all(torch.equal(getattr(card[0], f).cpu(), getattr(host[0], f))
+                     for f in card[0].FIELDS)
+    arrival_flips = float((card[1].cpu() != host[1]).float().mean())
+    works_rel = float(((card[2].cpu() - host[2]).abs() / host[2].abs()).max())
+    fault_flips = float(((card[3].cpu() - host[3]).abs() > 1e-6).float().mean())
+    faults_max_abs = float((card[3].cpu() - host[3]).abs().max())
+    check(spec_equal, "stream devices: the spec differs between the card and the CPU")
+    check(arrival_flips <= STREAM_ARRIVAL_FLIPS, f"stream devices: arrivals {arrival_flips}")
+    check(works_rel <= STREAM_WORKS_RTOL, f"stream devices: job sizes {works_rel}")
+    check(fault_flips <= STREAM_FAULT_FLIPS, f"stream devices: faults {fault_flips}")
+    line["devices"] = {"configs": len(cfgs), "bits_equal": bits_equal, "spec_equal": spec_equal,
+                       "arrival_flips": arrival_flips, "works_max_rel": works_rel,
+                       "fault_flips": fault_flips, "faults_max_abs": faults_max_abs}
+    emit({"phase": "stream", "part": "devices", **line["devices"]})
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "stream", "phase_s": line["phase_s"], "card": line["card"]})
+    return line
+
+
+def resume_worker(ckpt_dir: str, out_path: str, slow: bool) -> int:
+    """The resume phase's subprocess: the checkpointed stream over the
+    first RESUME_POINTS configs, its summaries saved to ``out_path``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.sched import sweep, trace
+
+    points = sweep.make_grid(trace.TraceConfig(**STREAM_CFG), seeds=range(RESUME_POINTS))
+    if slow:
+        real = sweep.summarize
+
+        def slow_summarize(out):
+            time.sleep(RESUME_SLOW_S)
+            return real(out)
+
+        sweep.summarize = slow_summarize
+    summary = sweep.sweep_stream(points, STREAM_ALGORITHMS, chunk_size=RESUME_CHUNK,
+                                 checkpoint_dir=ckpt_dir)
+    np.savez(out_path, **{k.replace("/", "|"): v for k, v in summary.items()})
+    print("RESUME-SWEEP-DONE", flush=True)
+    return 0
+
+
+def resume_phase(torch, dev) -> dict:
+    """Kill a checkpointed stream with SIGKILL, resume it in a fresh
+    process, and hold the result to an uninterrupted run, bit for bit."""
+    import hashlib
+    import signal
+    import subprocess
+
+    from repro_torch.ckpt import checkpoint as ckpt_io
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.sched import sweep, trace
+
+    t_phase = time.perf_counter()
+    points = sweep.make_grid(trace.TraceConfig(**STREAM_CFG), seeds=range(RESUME_POINTS))
+    n_chunks = RESUME_POINTS // RESUME_CHUNK
+
+    def spawn(d, out, slow):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--resume-worker", d, out,
+             "slow" if slow else "fast"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def shas(d):
+        out = {}
+        for s in ckpt_io.available_steps(d):
+            if ckpt_io.verify_checkpoint(d, s):
+                with open(os.path.join(d, f"step_{s:08d}.npz"), "rb") as f:
+                    out[s] = hashlib.sha256(f.read()).hexdigest()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="repro-torch-resume-") as tmp:
+        d = os.path.join(tmp, "ckpt")
+        out = os.path.join(tmp, "resumed.npz")
+        p = spawn(d, os.path.join(tmp, "unused.npz"), slow=True)
+        try:
+            deadline = time.time() + RESUME_WAIT_S
+            while time.time() < deadline and p.poll() is None:
+                if len(shas(d)) >= RESUME_KILL_AFTER:
+                    break
+                time.sleep(0.02)
+            if p.poll() is not None:
+                stdout, stderr = p.communicate(timeout=60)
+                check(False, f"resume: the sweep exited before the kill:\n{stdout}{stderr[-4000:]}")
+            os.kill(p.pid, signal.SIGKILL)
+        finally:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        check(p.returncode == -signal.SIGKILL, f"resume: the worker exited {p.returncode}")
+        ck = sweep.SweepCheckpoint(d, points, STREAM_ALGORITHMS, chunk_size=RESUME_CHUNK)
+        survived = ck.completed_chunks()
+        check(RESUME_KILL_AFTER <= survived < n_chunks,
+              f"resume: {survived} of {n_chunks} chunks survived the kill")
+        before = shas(d)
+        t0 = time.perf_counter()
+        p2 = spawn(d, out, slow=False)
+        try:
+            stdout, stderr = p2.communicate(timeout=RESUME_WAIT_S)
+        finally:
+            if p2.poll() is None:
+                p2.kill()
+                p2.wait(timeout=60)
+        resume_s = time.perf_counter() - t0
+        check("RESUME-SWEEP-DONE" in stdout, f"resume: the resumed sweep failed:\n{stderr[-4000:]}")
+        check(ck.completed_chunks() == n_chunks, "resume: the store is not complete")
+        after = shas(d)
+        rewritten = [s for s in range(survived) if after[s] != before[s]]
+        check(not rewritten, f"resume: surviving chunks {rewritten} were rewritten")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = sweep.sweep_stream(points, STREAM_ALGORITHMS, chunk_size=RESUME_CHUNK)
+        torch.cuda.synchronize()
+        straight_s = time.perf_counter() - t0
+        with np.load(out) as got:
+            check(set(got.files) == {k.replace("/", "|") for k in ref},
+                  "resume: the resumed summaries have other metrics")
+            differ = [k for k in ref if not np.array_equal(got[k.replace("/", "|")], ref[k])]
+        check(not differ, f"resume: resumed summaries differ from the uninterrupted run: {differ}")
+        try:
+            sweep.SweepCheckpoint(d, points[:-1], STREAM_ALGORITHMS, chunk_size=RESUME_CHUNK)
+            mismatch = False
+        except sweep.SweepResumeMismatch:
+            mismatch = True
+        check(mismatch, "resume: a store of another grid was accepted")
+    line = {"phase": "resume", "configs": RESUME_POINTS, "chunk": RESUME_CHUNK,
+            "chunks": n_chunks, "survived_kill": survived, "surviving_chunks_untouched": True,
+            "bitwise_equal_uninterrupted": True, "other_grid_refused": True,
+            "resume_process_s": resume_s, "uninterrupted_s": straight_s,
+            "card": gpu_name_and_power_limit(), "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+def regret_validation_phase(torch, dev) -> dict:
+    """benchmarks/bench_regret.py's quick Theorem-1 grid through
+    core.regret.regret_validation on the card, every cell against the
+    reference's pinned readings."""
+    import warnings
+
+    from repro_torch.core import regret
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.sched import trace
+
+    t_phase = time.perf_counter()
+    cfg = trace.TraceConfig(**REGRET_CFG)
+    points, labels = regret.make_regret_grid(cfg, utilities=REGRET_UTILITIES,
+                                             regimes=REGRET_REGIMES, seeds=REGRET_SEEDS)
+    n0 = launch_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        records = regret.regret_validation(points, labels, chunk_size=REGRET_CHUNK,
+                                           oracle_iters=REGRET_ORACLE_ITERS,
+                                           n_boot=REGRET_N_BOOT)
+    wall = time.perf_counter() - t0
+    launches = launch_delta(n0, launch_snapshot())
+    chunks = -(-len(points) // REGRET_CHUNK)
+    shape = f"{REGRET_CHUNK * cfg.R * cfg.K}x{cfg.L}"
+    check(launches == {"oga_step_fused": {shape: chunks * cfg.T},
+                       "proj_sortscan": {shape: chunks * REGRET_ORACLE_ITERS}},
+          f"regret_validation: launches {launches}")
+    # where a chunk's time goes: a REGRET_PROFILE_SHARE of its work (as
+    # many slots and oracle steps), the same mix of steps; the profiler's
+    # own accounting of a whole chunk's ~580k host ops takes ~2 minutes
+    from repro_torch.sched import sweep
+
+    batch = sweep.build_batch(points[:REGRET_CHUNK])
+    chunk_profile = device_profile(torch, lambda: regret.regret_curves_batch(
+        batch.spec, batch.arrivals[:, : cfg.T // REGRET_PROFILE_SHARE], batch.eta0,
+        batch.decay, oracle_iters=REGRET_ORACLE_ITERS // REGRET_PROFILE_SHARE), n_top=4)
+    chunk_profile["share_of_chunk"] = 1.0 / REGRET_PROFILE_SHARE
+    del batch
+    cells, worst = {}, {"r_T_mean": 0.0, "exponent": 0.0, "bound": 0.0}
+    for r in records:
+        key = f"{r['utility']}/{r['regime']}"
+        errs = regret_errors(r, REGRET_REFERENCE[key])
+        check(errs["flags_equal"], f"regret_validation {key}: flags {r} vs {REGRET_REFERENCE[key]}")
+        check(errs["r_T_mean"] <= REGRET_R_T_BAR, f"regret_validation {key}: r_T_mean {errs}")
+        check(errs["exponent"] <= REGRET_EXPONENT_ATOL, f"regret_validation {key}: exponent {errs}")
+        check(errs["bound"] <= REGRET_BOUND_RTOL, f"regret_validation {key}: bound {errs}")
+        check(r["bound_ok"], f"regret_validation {key}: mean R_T above H_G sqrt(T) (Thm. 1)")
+        cells[key] = {k: r[k] for k in ("r_T_mean", "bound", "exponent", "ci_lo", "ci_hi",
+                                        "bound_ok", "sublinear")}
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+    check(len(cells) == len(REGRET_REFERENCE), f"regret_validation: {len(cells)} cells")
+    line = {"phase": "regret_validation", "config": REGRET_CFG, "points": len(points),
+            "chunk": REGRET_CHUNK, "oracle_iters": REGRET_ORACLE_ITERS, "n_boot": REGRET_N_BOOT,
+            "wall_s": wall, "configs_per_s": len(points) / wall, "launches": launches,
+            "chunk_profile": chunk_profile, "cells": cells, "worst_error": worst,
+            "bars": {"r_T_mean": REGRET_R_T_BAR, "exponent": REGRET_EXPONENT_ATOL,
+                     "bound": REGRET_BOUND_RTOL},
+            "card": gpu_name_and_power_limit(), "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1316,6 +1808,10 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a checkout",
               file=sys.stderr)
         return 3
+    if sys.argv[1:2] == ["--resume-worker"]:
+        # the resume phase's subprocess (this script's own worker mode)
+        ckpt_dir, out_path, speed = sys.argv[2:5]
+        return resume_worker(ckpt_dir, out_path, speed == "slow")
     with tempfile.TemporaryDirectory(prefix="repro-torch-autotune-") as cache_dir:
         # a fresh autotune table: no earlier run's winners decide what runs
         os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_dir
@@ -1538,7 +2034,14 @@ def smoke(torch) -> dict:
         return ({rb: time_ms(lambda: fn(rb)) for rb in rbs},
                 {rb: floor_ms(N, L, rb) for rb in rbs})
 
-    shapes = {"fig2": (768, 10), "fig5": (6144, 100), "grid64": (49152, 10)}
+    # the main path's shapes, then the stream path's: the slot stream's
+    # chunk of 256, the lifecycle stream's 32, the regret grid's 16 and the
+    # host-trace stream's 16 Fig. 2 configs
+    shapes = {"fig2": (768, 10), "fig5": (6144, 100), "grid64": (49152, 10),
+              "stream": (16384, 6), "stream_lifecycle": (2048, 6), "regret_stream": (1024, 6),
+              "stream_host": (12288, 10)}
+    proj_shapes = {"fig2": (768, 10), "fig5": (6144, 100), "stream_lifecycle": (2048, 6),
+                   "regret_stream": (1024, 6)}
     oga_rows = {}
     for i, (label, (N, L)) in enumerate(shapes.items()):
         args = step_inputs(np.random.default_rng(seeds[i]), N, L)
@@ -1611,9 +2114,9 @@ def smoke(torch) -> dict:
             "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK, "bisect"),
         }
     proj_rows = {}
-    # the shapes the paths run it at: the regret oracle's (768, 10), and
-    # (6144, 100) where the autotune path tunes it
-    for i, (label, (N, L)) in enumerate({"fig2": (768, 10), "fig5": (6144, 100)}.items()):
+    # the shapes the paths run it at: the regret oracle's (768, 10), (6144,
+    # 100) where the autotune path tunes it, and the stream path's
+    for i, (label, (N, L)) in enumerate(proj_shapes.items()):
         z, a, m, c = proj_inputs(np.random.default_rng(seeds[4 + i]), N, L)
         args = cuda(z, a, m, c)
         got = ops.proj_sortscan(*args)
@@ -1781,7 +2284,7 @@ def smoke(torch) -> dict:
             "bisect_over_sortscan": {k: v / measured[win.label] for k, v in ab.items()},
         }
     tuned_proj = {}
-    for label, (N, L) in {"fig2": (768, 10), "fig5": (6144, 100)}.items():
+    for label, (N, L) in proj_shapes.items():
         # the table keeps sortscan winners only, as dispatch projects by it;
         # both methods side by side are measured without publishing
         win, measured = autotune.tune("proj", N, L)
@@ -1963,6 +2466,8 @@ def smoke(torch) -> dict:
     t0 = time.perf_counter()
     out_g.update(sweep.run_grid(batch, grid_algorithms[1:]))
     summary = sweep.summarize({n: out_g[n] for n in grid_algorithms})
+    # the resident rows the stream path's host-trace stream is held to
+    grid_rows = {n: out_g[n].cpu().numpy() for n in grid_algorithms}
     heuristics_s = time.perf_counter() - t0
     for key, v in summary.items():
         check(v.shape == (64,) and np.isfinite(v).all(), f"grid: summary {key} not finite")
@@ -1999,6 +2504,22 @@ def smoke(torch) -> dict:
     lifecycle_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
                           for name, w in zip(names[:2], wrappers[:2])}
 
+    # ---------------------------------------------------------- stream path
+    torch.cuda.empty_cache()
+    zero_launches()
+    autotune.reset_stats()
+    stream = stream_phase(torch, dev, points, grid_rows)
+    resume_phase(torch, dev)
+    regret_line = regret_validation_phase(torch, dev)
+    stream_stats = autotune.cache_stats()
+    check(stream_stats["measurements"] == 0 and stream_stats["misses"] == 0,
+          f"the warmed stream path measured or missed the autotune cache: {stream_stats}")
+    stream_counts = launches()
+    for name, n in zip(names[:2], stream_counts):
+        check(n > 0, f"{name} was not launched on the stream path")
+    stream_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
+                       for name, w in zip(names[:2], wrappers[:2])}
+
     # ----------------------------------------------------------- serve path
     torch.cuda.empty_cache()
     zero_launches()
@@ -2012,16 +2533,26 @@ def smoke(torch) -> dict:
 
     # ---------------------------------------------------------- kernel line
     paths = {"autotune": tune_launches, "main": counts, "lifecycle": lifecycle_counts,
-             "serve": serve_counts}
-    emit({"phase": "paths", "autotune_cache": stats,
+             "stream": stream_counts, "serve": serve_counts}
+    emit({"phase": "paths", "autotune_cache": stats, "stream_autotune_cache": stream_stats,
           "launches": {p: dict(zip(names, c)) for p, c in paths.items()},
           "main_launches_by_shape": main_by_shape,
-          "lifecycle_launches_by_shape": lifecycle_by_shape})
+          "lifecycle_launches_by_shape": lifecycle_by_shape,
+          "stream_launches_by_shape": stream_by_shape,
+          "stream_configs_per_s": {"slot": stream["slot"]["configs_per_s"],
+                                   "lifecycle": stream["lifecycle"]["configs_per_s"],
+                                   "regret_validation": regret_line["configs_per_s"]}})
     csrc = "src/repro_torch/kernels/csrc/"
 
     def by_path(i):
         """A kernel's launches on each path; "launches" is their sum."""
         return {p: c[i] for p, c in paths.items()}
+
+    def stream_times(rows):
+        """A kernel's rows at the stream path's shapes."""
+        return {label: {k: r[k] for k in ("N", "L", "max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+                for label, r in rows.items() if label.startswith(("stream", "regret"))}
 
     def wide_times(kernel):
         """A kernel's times at the wide rows, by L."""
@@ -2037,6 +2568,8 @@ def smoke(torch) -> dict:
          "launches_by_path": by_path(0),
          "main_launches_by_shape": main_by_shape["oga_step_fused"],
          "lifecycle_launches_by_shape": lifecycle_by_shape["oga_step_fused"],
+         "stream_launches_by_shape": stream_by_shape["oga_step_fused"],
+         "stream_rows": stream_times(oga_rows),
          "max_abs_err": max([r["max_abs_err"] for r in oga_rows.values()]
                             + [r["oga_step_fused"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": oga_rows["fig2"]["ms"], "plain_ms": oga_rows["fig2"]["plain_ms"],
@@ -2048,6 +2581,8 @@ def smoke(torch) -> dict:
          "launches_by_path": by_path(1),
          "main_launches_by_shape": main_by_shape["proj_sortscan"],
          "lifecycle_launches_by_shape": lifecycle_by_shape["proj_sortscan"],
+         "stream_launches_by_shape": stream_by_shape["proj_sortscan"],
+         "stream_rows": stream_times(proj_rows),
          "max_abs_err": max([r["max_abs_err"] for r in proj_rows.values()]
                             + [r["proj_sortscan"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": proj_rows["fig2"]["ms"], "plain_ms": proj_rows["fig2"]["plain_ms"],

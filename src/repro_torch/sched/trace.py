@@ -1,10 +1,12 @@
 """Synthetic Alibaba-like trace generation (paper §4 'Traces'), host path.
 
-Counterpart of ``repro.sched.trace`` (host numpy path): the same machine
-and job templates, the same seeded numpy streams and draw order, so the
-port's specs, arrivals and job sizes are the reference's bits exactly
-(pinned against the SHA-256 digests of tests/test_trace.py). The arrays
-are built in numpy and moved to the device once.
+Counterpart of ``repro.sched.trace``. The host numpy path uses the same
+machine and job templates, the same seeded numpy streams and draw order,
+so the port's specs, arrivals and job sizes are the reference's bits
+exactly (pinned against the SHA-256 digests of tests/test_trace.py); the
+arrays are built in numpy and moved to the device once.
+``make_batch(trace_backend="device")`` generates a batch on the device
+instead (``sched.trace_device``).
 """
 from __future__ import annotations
 
@@ -250,7 +252,7 @@ def make_lifecycle(cfg: TraceConfig, device: DeviceLike = None):
     return build_spec(cfg, dev), build_arrivals(cfg, device=dev), build_works(cfg, dev)
 
 
-TRACE_BACKENDS = ("host",)
+TRACE_BACKENDS = ("host", "device")
 
 
 def check_batch_cfgs(cfgs) -> list:
@@ -266,17 +268,29 @@ def check_batch_cfgs(cfgs) -> list:
 
 def make_batch(cfgs, with_works: bool = False, trace_backend: str = "host",
                device: DeviceLike = None, with_faults: bool = False):
-    """Stacked traces of a batch of configs: (spec, arrivals, works, faults)
-    with a leading (G,) axis on every field; ``works`` and ``faults`` are
-    None unless requested (fault-free configs contribute rows of ones).
+    """Stacked traces of a batch of configs on ``device`` (None: the CUDA
+    card): (spec, arrivals, works, faults) with a leading (G,) axis on
+    every field; ``works`` and ``faults`` are None unless requested
+    (fault-free configs contribute rows of ones).
 
-    Only the host numpy path is ported (``trace_backend="host"``): one
-    ``build_spec``/``build_arrivals``/``build_works``/``build_faults`` per
-    config, stacked, equal to ``make`` config by config. The reference's
-    device-side generation is ROADMAP Queue 1, item 14.
+    ``trace_backend`` picks where the randomness is drawn:
+
+    * ``"host"`` (default): the bitwise-pinned numpy path, one
+      ``build_spec``/``build_arrivals``/``build_works``/``build_faults`` per
+      config, stacked; equal to ``make`` config by config and to the
+      reference's bits.
+    * ``"device"``: one batched generation on the device
+      (``sched.trace_device``), statistically equivalent traces from a
+      counter-based hash, at a fraction of the host cost for streamed
+      chunks.
     """
     cfgs = check_batch_cfgs(cfgs)
-    if trace_backend not in TRACE_BACKENDS:
+    if trace_backend == "device":
+        from repro_torch.sched import trace_device
+
+        return trace_device.make_batch(cfgs, with_works=with_works,
+                                       with_faults=with_faults, device=device)
+    if trace_backend != "host":
         raise ValueError(
             f"trace_backend must be one of {TRACE_BACKENDS}, got {trace_backend!r}"
         )

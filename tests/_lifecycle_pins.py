@@ -33,7 +33,7 @@ from repro_torch.sched import lifecycle as tl
 from repro_torch.sched import trace as tt
 
 # chip_smoke.py's lifecycle phase: benchmarks/bench_lifecycle.py:27
-LIFECYCLE_CFG = dict(T=2000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
+LIFECYCLE_CFG = dict(T=1000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
 LIFECYCLE_ALGORITHMS = tl.ALGORITHMS + ("multiclass",)
 # chip_smoke.py's faults phase: benchmarks/bench_faults.py:55 (quick) and
 # its REGIMES (bench_faults.py:35), T cut from 1500 to 500 (PERF.md section 4)

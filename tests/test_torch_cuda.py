@@ -584,3 +584,65 @@ def test_lifecycle_with_faults_on_the_card_matches_cpu(dev, name):
                                    atol=1e-4 * max(1.0, float(w.abs().max())))
     c_t = spec.c[None] * faults[:, None, :]
     assert (got.used.cpu() <= c_t * (1 + lifecycle.FEAS_TOL) + lifecycle.FEAS_TOL).all()
+
+
+# ------------------------------------------------------------ stream path --
+def test_device_traces_on_the_card_match_cpu(dev):
+    """The hash words and the spec are the CPU's bit for bit (integer and
+    correctly rounded float32 arithmetic); arrivals may flip where sin
+    rounds otherwise (<= 1e-3 of them), job sizes within 1e-5 (pow)."""
+    from repro_torch.sched import trace_device
+
+    cfgs = [trace.TraceConfig(T=100, L=6, R=16, K=4, seed=s) for s in (0, 1, 2 ** 32 - 1)]
+    seeds = [c.seed for c in cfgs]
+    for stream in trace.STREAMS:
+        got = trace_device.stream_bits(torch.tensor(seeds, device=dev), stream, (64, 600))
+        want = trace_device.stream_bits(torch.tensor(seeds), stream, (64, 600))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), stream
+    card = trace_device.make_batch(cfgs, with_works=True, device=dev)
+    host = trace_device.make_batch(cfgs, with_works=True, device="cpu")
+    for f in card[0].FIELDS:
+        assert torch.equal(getattr(card[0], f).cpu(), getattr(host[0], f)), f
+    assert float((card[1].cpu() != host[1]).float().mean()) <= 1e-3
+    torch.testing.assert_close(card[2].cpu(), host[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["slot", "lifecycle"])
+def test_stream_matches_resident_on_the_card(dev, mode):
+    """5 configs in chunks of 2 (the last padded) against one resident
+    batch of the 5 on the card: the rows of every algorithm within 1e-6 of
+    their largest (the kernels' rows are independent of the batch; torch's
+    reductions may group a batch of 2 otherwise than one of 5)."""
+    points = sweep.make_grid(trace.TraceConfig(T=40, L=6, R=16, K=4), seeds=range(5))
+    algos = ("ogasched", "fairness")
+    resident = sweep.run_grid(sweep.build_batch(points, mode=mode, device=dev), algos,
+                              mode=mode)
+    for sl, _, out in sweep.run_grid_stream(points, algos, chunk_size=2, mode=mode, device=dev):
+        for name in algos:
+            got, want = out[name], resident[name][sl]
+            if mode == "lifecycle":
+                for f in ("admitted", "departed", "q_depth"):
+                    assert torch.equal(getattr(got, f), getattr(want, f)), (name, f)
+                got, want = got.rewards, want.rewards
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-6 * max(1.0, float(want.abs().max())))
+
+
+def test_offline_optimum_batch_on_the_card_matches_single_configs(dev):
+    """One proj_sortscan launch an iteration over all G*R*K rows; each row
+    within 1e-6 of its config's own oracle on the card (bit for bit on the
+    CPU, tests/test_torch_regret_stream.py)."""
+    from repro_torch.core import regret
+
+    points = sweep.make_grid(trace.TraceConfig(T=80, L=6, R=16, K=4, utility="log"),
+                             seeds=range(3))
+    batch = sweep.build_batch(points, device=dev)
+    p0 = tss.proj_sortscan.launches
+    y = regret.offline_optimum_batch(batch.spec, batch.arrivals, iters=200, device=dev)
+    torch.cuda.synchronize()
+    assert tss.proj_sortscan.launches - p0 == 200
+    for g in range(3):
+        single = regret.offline_optimum(batch.spec[g], batch.arrivals[g], iters=200, device=dev)
+        torch.testing.assert_close(y[g], single, rtol=0,
+                                   atol=1e-6 * max(1.0, float(single.abs().max())))

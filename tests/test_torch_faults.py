@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.sched import lifecycle as jl
 from repro.sched import trace as jt
 from repro_torch.sched import lifecycle as tl

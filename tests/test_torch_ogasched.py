@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core import baselines as jbase
 from repro.core import graph as jgraph
 from repro.core import ogasched as jog

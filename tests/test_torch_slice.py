@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.sched import simulator as jsim
 from repro.sched import trace as jtrace
 from repro_torch import convert
