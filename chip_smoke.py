@@ -17,14 +17,15 @@ Phases, each printing one JSON line:
            memory).
   kernels  each CUDA kernel against its plain PyTorch version on the card
            (the projections also against the float64 oracle), at the shapes
-           the main and stream paths give it, with CUDA-event times, bounds and the
+           the main, stream and extensions paths give it, with CUDA-event times, bounds and the
            launch floor (an empty kernel on the launch's grid); the sortscan
            kernels also at every legal row block; the fused step's bisect
            branch also against its sortscan method; proj_bisect bit for bit
            against a float32 emulation of its sums' order (the copy of
            tests/_bisect_network.py below) at widths 1 to 4096.
-  autotune the kernel-tuning path: kernels.autotune.tune at the main and
-           stream paths' shapes, stored in a fresh temporary cache; the bisect A/B at each
+  autotune the kernel-tuning path: kernels.autotune.tune at the main,
+           stream and extensions paths' shapes, stored in a fresh temporary
+           cache (the extension shapes' tuned times); the bisect A/B at each
            winner's row block (both methods take the same row blocks); and
            every legal row block of the four projection kernels (both
            methods, fused and standalone) against row_block = 1, bit for
@@ -52,7 +53,9 @@ Phases, each printing one JSON line:
            instructions in the built library.
   reduced_lm  model.prefill of reduced(gemma2-27b) and reduced(stablelm-3b)
            as they are (float32, head dim 16) on the card against the same
-           call on the CPU, through the float32 kernel.
+           call on the CPU, through the float32 kernel; and
+           reduced(stablelm-3b) with the int8 KV cache, prefilled and
+           decoded 8 tokens, card against CPU.
   lifecycle the job lifecycle at benchmarks/bench_lifecycle.py's
            configuration (L 10, R 128, K 6, work_mean 1200, seed 0; T cut
            from 2000 to 1000):
@@ -93,13 +96,28 @@ Phases, each printing one JSON line:
            oracle steps) through core.regret.regret_validation: every
            cell against the JAX reference's pinned readings
            (REGRET_REFERENCE), bound_ok true in every cell.
+  extensions  the paper's §3.4 at Fig. 2's config with Poisson counts
+           (90 virtual ports; the J = 1 expansion of Fig. 2's trace bit for
+           bit the fig2 phase's OGASCHED rewards), §3.5 gang scheduling on
+           Fig. 2's spec over 500 slots (feasible and All-or-Nothing every
+           slot, kept-port masks and Σ q_t against the reference's pins),
+           §3.2's sharded step at launch/dryrun.py's scheduler cell (L 100,
+           R 131072, K 6) on 1 and 4 shards of the card against the
+           unsharded fused step (ms a step, peak memory), and the job
+           manager on examples/elastic_cluster.py's scenario (grants and
+           meshes equal to the reference's, EXTENSIONS_REFERENCE from
+           tests/_extensions_pins.py); the fused kernel's launches by shape.
   lm_prefill  the LM serving path at gemma2-27b's full width: first the
            float32 check at 2 layers (prefill(S - 1) + serve_step against
            prefill(S)), then all 46 layers in bf16 from seeded random
            weights: prefill of one 8192-token prompt (timed, peak memory)
-           and the same decode-after-prefill check.
+           and the same decode-after-prefill check, with the bf16 KV cache
+           and with the int8 one (kv_cache_quant=True; its bytes against
+           the int8 + scale arithmetic).
   lm_serve the continuous-batching Engine on those weights: 8 greedy
-           requests over 4 slots, each first token against prefill's.
+           requests over 4 slots, each first token against prefill's; the
+           same requests on the int8 KV cache (tokens recorded beside the
+           bf16 cache's, the cache's bytes (hd + 4) / (2 hd) of bf16's).
 
 The kernels phase also holds both sortscan kernels and both bisect kernels
 at the wide rows (L 257 to 4096, one block a row), with rows of zero
@@ -110,8 +128,9 @@ miss it never. The kernel launch counters are set to 0 before the autotune
 path and read after it, again for the main path (fig2 to grid), again for
 the lifecycle path (lifecycle, faults and grid_lifecycle), again for the
 stream path (stream, resume and regret_validation: no autotune miss or
-measurement either; each part checks its launches by shape) and again for
-the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
+measurement either; each part checks its launches by shape), again for the
+extensions path (the extensions phase: no miss or measurement, launches by
+shape) and again for the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
 path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
 line before the last lists every kernel with its launches on each path
 and their sum, its error and its times (flash attention as two kernels,
@@ -305,6 +324,19 @@ REDUCED_TOKENS = (2, 96)
 REDUCED_LOGIT_ATOL = 1e-4
 LM_BF16_DECODE_ATOL = 0.7
 LM_PREFILL_REPS = 2
+# The int8 KV cache (kv_cache_quant=True). reduced_lm: reduced(stablelm-3b)
+# prefilled (2 x 96 tokens) and decoded REDUCED_INT8_STEPS tokens on the
+# card and on the CPU. The prefill's logits do not read the cache:
+# REDUCED_LOGIT_ATOL. K and V differ by float32 rounding between the
+# devices, so a value on a rounding boundary may take the next int8 code:
+# codes may differ by at most 1, scales (max|K| / 127) by at most
+# REDUCED_LOGIT_ATOL / 127, and the decode's logits by REDUCED_LOGIT_ATOL
+# plus INT8_FLIP_LOGIT for every code that differs. One code moved by one
+# step moves these logits by at most half of INT8_FLIP_LOGIT
+# (tests/test_torch_kv_quant.py holds it on the CPU at this config).
+REDUCED_INT8_ARCH = "stablelm-3b"
+REDUCED_INT8_STEPS = 8
+INT8_FLIP_LOGIT = 0.03
 # lm_serve: 4 slots, a 512-slot cache, 8 greedy requests of 32-64 prompt
 # tokens and 32 new ones. The logits of the step that gives a request its
 # first token are held to the bf16 decode bar above against prefill's, and
@@ -517,6 +549,130 @@ REGRET_REFERENCE = {
 REGRET_R_T_BAR = 1e-4
 REGRET_EXPONENT_ATOL = 0.01
 REGRET_BOUND_RTOL = 1e-6
+# The extensions path (the paper's §3.2, §3.4 and §3.5, and the job
+# manager). (a) §3.4 at Fig. 2's config (paper Tab. 2;
+# benchmarks/bench_reward.py:17) with Poisson counts
+# (trace.build_arrivals(multi=True)): J = the largest count, one fused
+# launch a slot over (R*K, L*J) rows; the J = 1 expansion of Fig. 2's
+# indicator trace must give the fig2 phase's OGASCHED rewards bit for bit.
+EXT_MULTI_CFG = dict(T=2000, L=10, R=128, K=6, seed=1, contention=10.0)
+EXT_ETA0, EXT_DECAY = 25.0, 0.9999
+# The average reward is held at REWARD_RTOL. At L*J = 90 ports the
+# trajectory amplifies rounding: the reference's own average moves by up
+# to 2.18e-4 relative when c, a or alpha moves by one float32 ulp, its
+# per-slot rewards parting from the unperturbed run's (by more than
+# TRAJ_TOL of the largest) from slot 111 on (tests/_extensions_pins.py
+# --sensitivity), and the port's plain path on the CPU reads 2.2e-4. So
+# the per-slot rewards are also held to the reference's pinned first
+# EXT_MULTI_PREFIX slots, where rounding has not yet been amplified: the
+# first slot that parts is recorded and the average of the slots before
+# it held at REWARD_RTOL (the CPU tests hold the plain path so).
+EXT_MULTI_PREFIX = 100
+# (b) §3.5 on the same spec over the first EXT_GANG_T slots of its
+# indicator trace: EXT_GANG_Q tasks a job type, requests uniform(0.5, 3.0)
+# from EXT_GANG_SEED, the last task absent on even ports, m_l = ceil(valid
+# tasks / 2), eta EXT_GANG_ETA fixed, y(1) = 0: one fused launch over
+# (R*K, L*Q) rows a slot, then the All-or-Nothing repair.
+EXT_GANG_T = 500
+EXT_GANG_Q = 4
+EXT_GANG_SEED = 20261017
+EXT_GANG_ETA = 5.0
+# (c) §3.2 at the repo's cluster-scale scheduler cell (launch/dryrun.py:322
+# run_sched_cell: L 100, R 131072, K 6, density 0.25, seed 0): y(1) a
+# feasible draw from EXT_DIST_Y0_SEED, x(t) from build_arrivals, eta 25,
+# EXT_DIST_STEPS steps on 1 and 4 shards of the one card, each step held to
+# the unsharded fused step from the same y (the reference's bars,
+# tests/test_distributed.py: y 2e-5 absolute, q 1e-5 relative; y bit for
+# bit on one shard).
+EXT_DIST_CFG = dict(T=10, L=100, R=131072, K=6, seed=0, density=0.25)
+EXT_DIST_Y0_SEED = 20261017
+EXT_DIST_ETA = 25.0
+EXT_DIST_SHARDS = (1, 4)
+EXT_DIST_Y_ATOL = 2e-5
+EXT_DIST_Q_RTOL = 1e-5
+# (d) examples/elastic_cluster.py's scenario: these four templates, 64
+# hosts, seed 0, 40 slots of default_rng(0) arrivals (P = 0.7 a job).
+EXT_JOBS = (("qwen2-72b", 4.0, 48.0), ("kimi-k2-1t-a32b", 4.0, 64.0),
+            ("mamba2-780m", 2.0, 8.0), ("stablelm-3b", 2.0, 16.0))
+EXT_HOSTS = 64
+EXT_JOB_SLOTS = 40
+# The fused kernel's packed shapes on the extensions path (kernels and
+# autotune phases): §3.4 (R*K, L*J) at J = 9, §3.5 (R*K, L*Q), the job
+# manager's (hosts*K, jobs), §3.2's rows on 1 and on 4 shards.
+EXT_SHAPES = {"multi_arrival": (768, 90), "gang": (768, 40), "job_manager": (384, 4),
+              "distributed_1": (786432, 100), "distributed_4": (196608, 100)}
+# rows a call of a plain version takes at the extension shapes (plain_rows)
+PLAIN_CHUNK_ROWS = 196608
+# CUDA-event repeats of the plain version at §3.2's shapes (PLAIN_CHUNK_ROWS
+# rows or more): 65-262 ms a call, so TIMING_REPS with the tuner's warm-up
+# and spin would take ~40 s of the script's limit
+EXT_PLAIN_REPS = 3
+# The JAX reference's readings at (a), (b) and (d) on the CPU (jax 0.9.0),
+# from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_extensions_pins.py
+# "kept" packs every slot's kept-port mask (EXT_GANG_T x L bits).
+EXTENSIONS_REFERENCE = {
+    "multi": {"J": 9, "avg_reward": 7014.193359375,
+              "prefix": ("eNoBkAFv/gAAAAC6wFlFaYTYRZnDsUV+njBF9M/QRfV8ukVPbSdGV0iMRW0nwkXZ8I1FzGib"
+                         "RfJAGkadvtdFJUboRQlM9EUJJolF6r6TRWQdCEbmRU9Gup/1Rfgon0VkVLtFcB3sRXLd9kVv"
+                         "tOpFHNUERngW80U8Hw5GFbSERWtxlUVN7wdGVF4DRoOClEVwtC1GPt4wRmxJ/EVU9exF9k/q"
+                         "RbLZxUUab+pF/mjgRTgwF0ZaSexFrWOARSiDE0YWFeJFxpjxRWDE9EUVqrtFMS3kRaBNtkUE"
+                         "AWtFhMDiRdTR9kWUIcdFLGzpRYnpCEZkZQJGnu4ZRu9D3kVemCRG/3VmRTZ+9EWK5Q1GPc/E"
+                         "RZQzJEbISgJGBAnjRaR5AUamowBGTfL5ReLUFEZNfpZFOIqhRaY+JUb2XO1FAc30RUywDkaQ"
+                         "OgFGEPHiRdo+K0Y50ttFApkHRnCAqEV6IShGON3zRfQl7UWw0rtF3GHjRc3/f0Wk+JdFyOXx"
+                         "RcMt2UUWVrBFi6oURqtc4EWfpI9FStuJRfQx7EWpc7a5")},
+    "gang": {"sum_q": 2224571.9462890625, "kept": "eNp7XPt/FIwC+gEA2oVuEA=="},
+    "jobs": {"grants": [[32, 32, 32, 32], [-1, -1, 64, -1], [64, -1, -1, 64], [-1, 128, -1, 32],
+                        [-1, 32, 64, 64], [64, 64, 16, 16], [64, 128, -1, -1], [32, 16, 64, 64],
+                        [64, -1, 32, 32], [64, -1, -1, 64], [16, 64, 32, 16], [64, -1, 32, 64],
+                        [64, -1, -1, 64], [-1, 64, 32, 32], [64, -1, 32, 64], [16, 64, 32, 32],
+                        [128, 32, 32, -1], [32, 64, 32, -1], [64, -1, 32, 64], [64, -1, -1, 64],
+                        [-1, 64, 32, -1], [128, -1, -1, -1], [128, -1, -1, -1], [128, -1, -1, -1],
+                        [128, -1, -1, -1], [32, 128, -1, -1], [64, 32, 64, -1], [32, -1, 32, 64],
+                        [-1, 128, -1, 32], [-1, 64, -1, 64], [128, 32, -1, 32], [32, 64, -1, 64],
+                        [64, 32, 64, 32], [-1, 64, 32, 64], [-1, 64, -1, 64], [128, 32, -1, 32],
+                        [64, -1, 64, -1], [32, -1, 32, 64], [32, 128, 16, -1], [-1, 64, -1, 64]],
+             "meshes": {"16": [1, 16], "32": [2, 16], "64": [4, 16], "128": [8, 16]}},
+}
+
+
+def gang_task_requests(L: int, K: int) -> np.ndarray:
+    """(L, EXT_GANG_Q, K) task requests of the §3.5 setup, float32: the
+    last task absent (all zero) on even ports."""
+    rng = np.random.default_rng(EXT_GANG_SEED)
+    req = rng.uniform(0.5, 3.0, (L, EXT_GANG_Q, K)).astype(np.float32)
+    req[0::2, EXT_GANG_Q - 1] = 0.0
+    return req
+
+
+def gang_m_min(task_requests: np.ndarray) -> np.ndarray:
+    """m_l = ceil(valid tasks / 2), float32 (L,)."""
+    valid = (task_requests.sum(-1) > 0).sum(-1)
+    return np.ceil(valid / 2.0).astype(np.float32)
+
+
+def job_arrivals() -> np.ndarray:
+    """(EXT_JOB_SLOTS, 4) float32 arrival indicators, drawn slot by slot
+    as examples/elastic_cluster.py draws them."""
+    rng = np.random.default_rng(0)
+    return np.stack([(rng.uniform(size=len(EXT_JOBS)) < 0.7).astype(np.float32)
+                     for _ in range(EXT_JOB_SLOTS)])
+
+
+def pack_floats(a: np.ndarray) -> str:
+    """float32 values as zlib, base64 (``unpack_floats``'s inverse)."""
+    return base64.b64encode(zlib.compress(np.asarray(a, np.float32).tobytes(), 9)).decode()
+
+
+def unpack_floats(blob: str) -> np.ndarray:
+    return np.frombuffer(zlib.decompress(base64.b64decode(blob)), np.float32)
+
+
+def pack_bits(a: np.ndarray) -> str:
+    """A bool array as packed bits, zlib, base64 (``unpack_events``'s
+    inverse)."""
+    return base64.b64encode(zlib.compress(np.packbits(a.astype(bool).ravel()).tobytes(),
+                                          9)).decode()
 
 
 def regret_errors(rec: dict, ref: dict) -> dict:
@@ -531,6 +687,18 @@ def regret_errors(rec: dict, ref: dict) -> dict:
             "bound": abs(rec["bound"] - ref["bound"]) / ref["bound"],
             "flags_equal": (rec["bound_ok"], rec["sublinear"]) == (ref["bound_ok"],
                                                                      ref["sublinear"])}
+
+
+def plain_rows(fn, args, chunk: int = None):
+    """A plain row function over row blocks of ``chunk`` (PLAIN_CHUNK_ROWS)
+    rows, concatenated: rows are independent, so the values are the
+    one-call ones, and the (N, 2L, L) temporaries of the plain sweep stay
+    within the card (63 GB at (786432, 100) in one call)."""
+    import torch
+
+    chunk = chunk or PLAIN_CHUNK_ROWS
+    N = args[0].shape[0]
+    return torch.cat([fn(*(t[i:i + chunk] for t in args)) for i in range(0, N, chunk)])
 
 
 def emit(obj) -> None:
@@ -943,6 +1111,7 @@ def reduced_lm_phase(torch, dev) -> dict:
     from repro_torch.configs import base as configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
 
     t_phase = time.perf_counter()
     rows = {}
@@ -969,8 +1138,25 @@ def reduced_lm_phase(torch, dev) -> dict:
         check(rows[arch]["max_abs_dlogit"] <= REDUCED_LOGIT_ATOL
               and rows[arch]["max_abs_dcache_k"] <= REDUCED_LOGIT_ATOL,
               f"reduced {arch}: card vs CPU {rows[arch]}")
+    # the int8 KV cache, card against CPU
+    cfg = configs.reduced(configs.get(REDUCED_INT8_ARCH), kv_cache_quant=True)
+    params = M.init_params(cfg, LM_SEED, "cpu")
+    rng = np.random.default_rng(np.random.SeedSequence(LM_SEED, spawn_key=(len(REDUCED_ARCHS),)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, REDUCED_TOKENS))
+    want = prefill_then_decode(torch, M, tf, params, cfg, toks, REDUCED_INT8_STEPS)
+    got = prefill_then_decode(torch, M, tf, to_device(params, dev), cfg, toks.to(dev),
+                              REDUCED_INT8_STEPS)
+    int8 = int8_card_vs_cpu(torch, got, want)
+    int8_bar = REDUCED_LOGIT_ATOL + INT8_FLIP_LOGIT * int8["codes_differing"]
+    emit({"phase": "reduced_lm", "arch": REDUCED_INT8_ARCH, "kv_cache_quant": True,
+          "decode_steps": REDUCED_INT8_STEPS, **int8, "decode_bar": int8_bar})
+    check(int8["finite"] and int8["prefill_max_abs_dlogit"] <= REDUCED_LOGIT_ATOL,
+          f"reduced int8: prefill card vs CPU {int8}")
+    check(int8["max_abs_dcode"] <= 1 and int8["max_abs_dscale"] <= REDUCED_LOGIT_ATOL / 127,
+          f"reduced int8: cache card vs CPU {int8}")
+    check(int8["decode_max_abs_dlogit"] <= int8_bar, f"reduced int8: decode card vs CPU {int8}")
     return {"phase": "reduced_lm", "phase_s": time.perf_counter() - t_phase,
-            "atol": REDUCED_LOGIT_ATOL, "archs": list(rows)}
+            "atol": REDUCED_LOGIT_ATOL, "archs": list(rows), "int8_arch": REDUCED_INT8_ARCH}
 
 
 def to_device(params, dev):
@@ -1007,6 +1193,44 @@ def device_profile(torch, fn, n_top: int = 8) -> dict:
             "top_kernels_ms": [(k[:60], n, t / 1e3) for t, n, k in kernels[:n_top]]}
 
 
+def pad_cache(torch, tf, cache: dict, n: int) -> dict:
+    """A prefill's cache with ``n`` empty slots appended on the sequence
+    axis (zeros; kpos EMPTY_KPOS), every entry (the int8 cache's scales
+    too)."""
+    pad = lambda c, fill: torch.cat([c, torch.full_like(c[:, :, :n], fill)], dim=2)
+    return {k: pad(v, tf.EMPTY_KPOS if k == "kpos" else 0) for k, v in cache.items()}
+
+
+def prefill_then_decode(torch, M, tf, params, cfg, toks, steps: int):
+    """prefill(toks), then ``steps`` serve_steps after it (token i of the
+    prompt fed at position S + i). Returns (prefill's logits, the steps'
+    logits (steps, B, vocab), the final cache)."""
+    S = toks.shape[1]
+    logits, cache = M.prefill(params, cfg, {"tokens": toks})
+    cache = pad_cache(torch, tf, cache, steps)
+    outs = []
+    for i in range(steps):
+        lg, cache = M.serve_step(params, cfg, cache, toks[:, i:i + 1], S + i)
+        outs.append(lg)
+    return logits, torch.stack(outs), cache
+
+
+def int8_card_vs_cpu(torch, got, want) -> dict:
+    """prefill_then_decode's outputs on the card against the CPU's: the
+    prefill's and the decode's max |Δlogit|, the int8 codes that differ
+    and by how much at most, and the scales' largest difference."""
+    (gl, gd, gc), (wl, wd, wc) = got, want
+    dcode = {n: (gc[n].cpu().to(torch.int16) - wc[n].to(torch.int16)).abs() for n in ("k", "v")}
+    return {"prefill_max_abs_dlogit": float((gl.cpu() - wl).abs().max()),
+            "decode_max_abs_dlogit": float((gd.cpu() - wd).abs().max()),
+            "codes_differing": int(sum(int((d > 0).sum()) for d in dcode.values())),
+            "codes": int(sum(d.numel() for d in dcode.values())),
+            "max_abs_dcode": int(max(int(d.max()) for d in dcode.values())),
+            "max_abs_dscale": float(max((gc[n].cpu() - wc[n]).abs().max()
+                                        for n in ("k_scale", "v_scale"))),
+            "finite": bool(torch.isfinite(gd).all())}
+
+
 def decode_after_prefill(torch, M, tf, params, cfg, prompt):
     """prefill(prompt[:, :S - 1]), its cache padded by one empty slot, one
     serve_step at position S - 1, against prefill(prompt)'s last logits
@@ -1015,9 +1239,7 @@ def decode_after_prefill(torch, M, tf, params, cfg, prompt):
     full, cache = M.prefill(params, cfg, {"tokens": prompt})
     del cache
     _, cache = M.prefill(params, cfg, {"tokens": prompt[:, :S - 1]})
-    pad = lambda c, fill: torch.cat([c, torch.full_like(c[:, :, :1], fill)], dim=2)
-    cache = {"k": pad(cache["k"], 0), "v": pad(cache["v"], 0),
-             "kpos": pad(cache["kpos"], tf.EMPTY_KPOS)}
+    cache = pad_cache(torch, tf, cache, 1)
     step, cache = M.serve_step(params, cfg, cache, prompt[:, S - 1:], S - 1)
     del cache
     return full, step
@@ -1089,6 +1311,14 @@ def lm_prefill_phase(torch, dev):
     full, step = decode_after_prefill(torch, M, tf, params, cfg, prompt)
     bf16 = compare_logits(torch, full, step)
     bf16["layers"] = cfg.n_layers
+    # the same check with the int8 KV cache on the same weights
+    cfg8 = dataclasses.replace(cfg, kv_cache_quant=True)
+    int8 = compare_logits(torch, *decode_after_prefill(torch, M, tf, params, cfg8, prompt))
+    _, cache8 = M.prefill(params, cfg8, {"tokens": prompt})
+    kv_bytes = lambda c: sum(c[n].nbytes for n in ("k", "v", "k_scale", "v_scale") if n in c)
+    int8["prefill_cache_kv_bytes"] = kv_bytes(cache8)
+    int8["bf16_prefill_cache_kv_bytes"] = 2 * cfg.n_layers * LM_SEQ * cfg.n_kv * cfg.hd * 2
+    del cache8
     # the same prefill with the plain attention in the kernel's place
     real_attention = attn_lib.attention
     attn_lib.attention = lambda q, k, v, window=None, attn_softcap=None: \
@@ -1108,7 +1338,8 @@ def lm_prefill_phase(torch, dev):
             "ms_per_prefill": ms, "ms_per_prefill_all": times,
             "prefill_tokens_per_s": LM_SEQ / (ms / 1e3),
             "peak_memory_gb": peak_gb, "prefill_profile": profile,
-            "bf16_decode_vs_prefill": bf16, "bf16_kernel_vs_plain_attention_prefill": vs_plain,
+            "bf16_decode_vs_prefill": bf16, "int8_cache_decode_vs_prefill": int8,
+            "bf16_kernel_vs_plain_attention_prefill": vs_plain,
             "f32_2_layers_decode_vs_prefill": f32,
             "bars": {"bf16_max_abs_dlogit": LM_BF16_DECODE_ATOL,
                      "f32_max_abs_dlogit": LM_F32_DECODE_ATOL},
@@ -1122,6 +1353,14 @@ def lm_prefill_phase(torch, dev):
           f"lm_prefill bf16: decode vs prefill max |dlogit| {bf16['max_abs_dlogit']}")
     check(vs_plain["finite"] and vs_plain["max_abs_dlogit"] <= LM_BF16_DECODE_ATOL,
           f"lm_prefill bf16: kernel vs plain attention prefill {vs_plain['max_abs_dlogit']}")
+    check(int8["finite"] and int8["argmax_prefill"] == int8["argmax_decode"],
+          f"lm_prefill int8 cache: decode argmax {int8['argmax_decode']} != prefill "
+          f"{int8['argmax_prefill']}")
+    check(int8["max_abs_dlogit"] <= LM_BF16_DECODE_ATOL,
+          f"lm_prefill int8 cache: decode vs prefill max |dlogit| {int8['max_abs_dlogit']}")
+    check(int8["prefill_cache_kv_bytes"] * 2 * cfg.hd
+          == int8["bf16_prefill_cache_kv_bytes"] * (cfg.hd + 4),
+          f"lm_prefill int8 cache: {int8['prefill_cache_kv_bytes']} bytes of K/V and scales")
     return cfg, params
 
 
@@ -1142,6 +1381,7 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
     first token (the decode path, fed the prompt one token per step) are
     held against prefill(prompt)'s last logits."""
     from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import Engine, Request
 
     t_phase = time.perf_counter()
@@ -1175,6 +1415,41 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
     for _ in range(3):
         eng.step()
     profile = device_profile(torch, lambda: [eng.step() for _ in range(5)])
+    bf16_bytes = sum(eng.cache[n].nbytes for n in ("k", "v"))
+    del eng
+    # the same requests on the int8 KV cache: the cache's bytes against
+    # the int8 + scale arithmetic (the allocator's growth, which rounds
+    # segments up, recorded beside them), the greedy tokens against the
+    # bf16 cache's
+    cfg8 = dataclasses.replace(cfg, kv_cache_quant=True)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    probe = tf.init_cache(cfg8, SERVE_SLOTS, SERVE_CACHE_LEN, M.compute_dtype(cfg), dev)
+    int8_alloc = torch.cuda.memory_allocated() - mem0
+    int8_bytes = sum(probe[n].nbytes for n in ("k", "v", "k_scale", "v_scale"))
+    kpos_bytes = probe["kpos"].nbytes
+    del probe
+    eng8 = Engine(cfg8, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN, device=dev)
+    reqs8 = [Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    for r in reqs8:
+        eng8.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng8.run()
+    torch.cuda.synchronize()
+    seconds8 = time.perf_counter() - t0
+    steps8 = eng8.steps_run
+    del eng8
+    int8 = {"kv_bytes": int8_bytes, "bf16_kv_bytes": bf16_bytes,
+            "ratio": int8_bytes / bf16_bytes, "arithmetic": (cfg.hd + 4) / (2 * cfg.hd),
+            "allocated_bytes": int8_alloc, "kpos_bytes": kpos_bytes,
+            "engine_steps": steps8, "ms_per_step": seconds8 * 1e3 / steps8,
+            "generated_tokens_per_s": sum(len(r.out) for r in reqs8) / seconds8,
+            "tokens": [r.out for r in reqs8],
+            "requests_equal_bf16": sum(a.out == b.out for a, b in zip(reqs8, reqs)),
+            "tokens_equal_bf16": sum(x == y for a, b in zip(reqs8, reqs)
+                                     for x, y in zip(a.out, b.out)),
+            "first_tokens_equal_bf16": sum(a.out[:1] == b.out[:1] for a, b in zip(reqs8, reqs))}
     rows = []
     for r, want in zip(reqs, prefilled):
         got = first_logits[id(r)]
@@ -1194,8 +1469,13 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
             "first_token_vs_prefill": rows, "bar_max_abs_dlogit": LM_BF16_DECODE_ATOL,
             "tie_gap": SERVE_TIE_GAP,
             "first_tokens_equal_prefill_argmax": sum(r["first_token"] == r["prefill_argmax"]
-                                                     for r in rows)}
+                                                     for r in rows),
+            "bf16_tokens": [r.out for r in reqs], "int8_cache": int8}
     emit(line)
+    check(int8_bytes * 2 * cfg.hd == bf16_bytes * (cfg.hd + 4),
+          f"lm_serve int8 cache: {int8_bytes} bytes of K/V and scales against {bf16_bytes} bf16")
+    check(all(len(r.out) == SERVE_NEW_TOKENS and r.done for r in reqs8),
+          "lm_serve int8 cache: a request ended early")
     for i, row in enumerate(rows):
         check(row["new_tokens"] == SERVE_NEW_TOKENS and reqs[i].done,
               f"lm_serve: request {i} ended with {row['new_tokens']} tokens")
@@ -1208,7 +1488,6 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
               or row["prefill_top2_gap"] <= SERVE_TIE_GAP,
               f"lm_serve: request {i} first token {row['first_token']} != prefill argmax "
               f"{row['prefill_argmax']} with a top-2 gap of {row['prefill_top2_gap']}")
-    del eng
     return line
 
 
@@ -1798,6 +2077,242 @@ def regret_validation_phase(torch, dev) -> dict:
     return line
 
 
+def extensions_phase(torch, dev, fig2_rewards: np.ndarray) -> dict:
+    """The extensions path: §3.4 at Fig. 2 (and its J = 1 expansion bit for
+    bit the fig2 phase's OGASCHED rewards), §3.5 at Fig. 2's scale, §3.2 at
+    the dry-run's scheduler cell on 1 and 4 shards, and the job manager,
+    each against the reference's pins or the unsharded step; the fused
+    kernel's launches by packed shape."""
+    from repro_torch.core import extensions, ogasched
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.sched import trace
+
+    t_phase = time.perf_counter()
+    n0 = launch_snapshot()
+    multi = multi_arrival_run(torch, dev)
+    spec2, arr2 = trace.make(trace.TraceConfig(**EXT_MULTI_CFG), device=dev)
+    espec1, x1 = extensions.expand_multi_arrival(spec2, arr2.to(torch.int32), 1)
+    r1, _ = ogasched.run(espec1, x1, eta0=EXT_ETA0, decay=EXT_DECAY, device=dev)
+    j1_bitwise = bool(np.array_equal(r1.cpu().numpy(), fig2_rewards))
+    del spec2, arr2, espec1, x1, r1
+    gang = gang_run(torch, dev)
+    jobs = job_manager_run(torch, dev)
+    errs = extension_errors(multi, gang, jobs, EXTENSIONS_REFERENCE)
+    dist = distributed_run(torch, dev)
+    launches = launch_delta(n0, launch_snapshot())
+    T2, steps = EXT_MULTI_CFG["T"], EXT_DIST_CFG["T"]
+    rows = EXT_DIST_CFG["R"] * EXT_DIST_CFG["K"]
+    expected = {"oga_step_fused": {
+        "x".join(map(str, multi["shape"])): T2, f"{multi['shape'][0]}x{EXT_MULTI_CFG['L']}": T2,
+        "x".join(map(str, gang["shape"])): EXT_GANG_T, "x".join(map(str, jobs["shape"])):
+        EXT_JOB_SLOTS, f"{rows}x{EXT_DIST_CFG['L']}": steps * (1 + EXT_DIST_SHARDS.count(1)),
+        **{f"{rows // n}x{EXT_DIST_CFG['L']}": steps * n for n in EXT_DIST_SHARDS if n > 1}},
+        "proj_sortscan": {}}
+    line = {"phase": "extensions", "phase_s": time.perf_counter() - t_phase,
+            "multi_arrival": {k: v for k, v in multi.items() if k != "rewards"},
+            "multi_arrival_j1_bitwise_fig2": j1_bitwise,
+            "gang": {k: v for k, v in gang.items() if k not in ("q", "kept")},
+            "job_manager": {"shape": jobs["shape"], "us_per_slot": jobs["us_per_slot"],
+                            "grants_first_slots": jobs["grants"][:4], "meshes": jobs["meshes"]},
+            "distributed": dist, "vs_reference": errs, "launches": launches,
+            "bars": {"multi_prefix_avg_reward": REWARD_RTOL, "multi_per_slot": TRAJ_TOL,
+                     "multi_avg_reward": REWARD_RTOL, "gang_sum_q": REWARD_RTOL,
+                     "dist_y_atol": EXT_DIST_Y_ATOL, "dist_q_rtol": EXT_DIST_Q_RTOL},
+            "card": gpu_name_and_power_limit()}
+    emit(line)
+    check(errs["multi_J_equal"] and multi["feasible"],
+          f"extensions §3.4: J {multi['J']}, feasible {multi['feasible']}")
+    check(j1_bitwise, "extensions §3.4: the J = 1 expansion moved the fig2 OGASCHED rewards")
+    check(errs["multi_prefix_avg_reward"] <= REWARD_RTOL,
+          f"extensions §3.4: the first slots' average is off the reference's: {errs}")
+    check(errs["multi_avg_reward"] <= REWARD_RTOL,
+          f"extensions §3.4: average reward {multi['avg_reward']} vs reference: {errs}")
+    check(gang["feasible_slots"] == gang["all_or_nothing_slots"] == EXT_GANG_T,
+          f"extensions §3.5: infeasible or not All-or-Nothing slots: {line['gang']}")
+    check(errs["gang_sum_q"] <= REWARD_RTOL and errs["gang_first_kept_diff"] is None,
+          f"extensions §3.5: sum q or kept masks vs the reference: {errs}")
+    check(errs["jobs_grants_equal"] and errs["jobs_meshes_equal"],
+          f"extensions job manager: grants {jobs['grants']} meshes {jobs['meshes']}")
+    check(dist["one_shard_y_bitwise"] and dist["feasible"],
+          f"extensions §3.2: one shard not bit for bit, or infeasible: {dist}")
+    for n, e in dist["vs_unsharded"].items():
+        check(e["y_max_abs"] <= EXT_DIST_Y_ATOL and e["q_rel"] <= EXT_DIST_Q_RTOL,
+              f"extensions §3.2 {n} shards vs unsharded: {e}")
+    check(launches == expected, f"extensions: launches {launches}, expected {expected}")
+    return line
+
+
+def multi_arrival_run(torch, dev, slots=None) -> dict:
+    """§3.4 at Fig. 2's config: Poisson counts expanded to L*J virtual
+    ports, OGASCHED over them (one fused launch a slot at (R*K, L*J)); over
+    the first ``slots`` slots only when given (J is the whole trace's)."""
+    from repro_torch.core import extensions, graph, ogasched
+    from repro_torch.sched import trace
+
+    cfg = trace.TraceConfig(**EXT_MULTI_CFG)
+    spec = trace.build_spec(cfg, dev)
+    arr = trace.build_arrivals(cfg, multi=True, device=dev)
+    J = int(arr.max())
+    espec, x_exp = extensions.expand_multi_arrival(spec, arr[:slots], J)
+    t0 = time.perf_counter()
+    rewards, y = ogasched.run(espec, x_exp, eta0=EXT_ETA0, decay=EXT_DECAY, device=dev)
+    rewards = rewards.cpu().numpy()
+    wall = time.perf_counter() - t0
+    return {"J": J, "ports": espec.L, "shape": [cfg.R * cfg.K, espec.L],
+            "avg_reward": float(rewards.mean()), "rewards": rewards,
+            "feasible": bool(graph.feasible(espec, y)), "us_per_slot": wall * 1e6 / len(rewards)}
+
+
+def gang_run(torch, dev) -> dict:
+    """§3.5 on Fig. 2's spec: EXT_GANG_T gang steps from y = 0, each slot's
+    reward, kept-port mask, feasibility and All-or-Nothing flag (every
+    job type has 0 or at least m_l scheduled tasks)."""
+    from repro_torch.core import extensions, graph
+    from repro_torch.kernels import ops
+    from repro_torch.sched import trace
+
+    cfg = trace.TraceConfig(**EXT_MULTI_CFG)
+    spec, arr = trace.make(cfg, device=dev)
+    req = gang_task_requests(spec.L, spec.K)
+    espec, pot, _ = extensions.expand_gang(spec, req)
+    m_min = torch.from_numpy(gang_m_min(req)).to(dev)
+    L, T = spec.L, EXT_GANG_T
+    operands = ops.pack_spec_operands(espec)
+    eta = torch.tensor(EXT_GANG_ETA, device=dev)
+    y = torch.zeros((espec.L, espec.R, espec.K), device=dev)
+    qs = torch.empty(T, device=dev)
+    kept = torch.empty((T, L), device=dev)
+    ok = torch.empty((T, 2), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for t in range(T):
+        y, qs[t] = extensions.gang_oga_step(espec, arr[t], y, eta, pot, m_min, L,
+                                            operands=operands)
+        kept[t] = extensions.kept_ports(y, pot, m_min, L)
+        n_sched = ((y.sum((1, 2)) > 1e-6).to(y.dtype).reshape(L, EXT_GANG_Q)).sum(1)
+        ok[t, 0] = graph.feasible(espec, y)
+        ok[t, 1] = ((n_sched == 0) | (n_sched >= m_min)).all()
+    qs, kept, ok = qs.cpu().numpy(), kept.cpu().numpy() > 0, ok.cpu().numpy()
+    wall = time.perf_counter() - t0
+    return {"T": T, "shape": [spec.R * spec.K, espec.L], "m_min": gang_m_min(req).tolist(),
+            "sum_q": float(qs.sum(dtype=np.float64)), "q": qs, "kept": kept,
+            "feasible_slots": int(ok[:, 0].sum()), "all_or_nothing_slots": int(ok[:, 1].sum()),
+            "kept_ports_mean": float(kept.mean()), "us_per_slot": wall * 1e6 / T}
+
+
+def job_manager_run(torch, dev) -> dict:
+    """examples/elastic_cluster.py's scenario on the port: each slot's
+    grants (template order, -1 where the job did not arrive) and the mesh
+    plan_mesh gives each grant."""
+    from repro_torch.launch.elastic import plan_mesh
+    from repro_torch.sched import job_manager
+
+    jobs = [job_manager.JobTemplate(arch=a, chips=c, hbm_gb=h) for a, c, h in EXT_JOBS]
+    spec = job_manager.build_cluster(jobs, n_hosts=EXT_HOSTS, seed=0, device=dev)
+    mgr = job_manager.JobManager(spec, jobs, device=dev)
+    grants = []
+    t0 = time.perf_counter()
+    for x in job_arrivals():
+        g = mgr.step(x)
+        grants.append([g.get(j.arch, -1) for j in jobs])
+    wall = time.perf_counter() - t0
+    meshes = {str(g): list(plan_mesh(g)) for g in sorted({g for row in grants for g in row})
+              if g > 0}
+    return {"shape": [spec.R * spec.K, spec.L], "grants": grants, "meshes": meshes,
+            "us_per_slot": wall * 1e6 / EXT_JOB_SLOTS}
+
+
+def distributed_run(torch, dev) -> dict:
+    """§3.2 at the dry-run's scheduler cell: EXT_DIST_STEPS steps of the
+    unsharded fused oga_step, and from each step's y the sharded step on
+    every shard count of EXT_DIST_SHARDS (all shards on ``dev``), held to
+    it; host ms a step (synchronised) and peak device memory."""
+    from repro_torch.core import distributed, graph, ogasched
+    from repro_torch.kernels import ops
+    from repro_torch.sched import trace
+
+    cfg = trace.TraceConfig(**EXT_DIST_CFG)
+    t0 = time.perf_counter()
+    spec = trace.build_spec(cfg, dev)
+    arr = trace.build_arrivals(cfg, device=dev)
+    y = graph.random_feasible_decision(spec, np.random.default_rng(EXT_DIST_Y0_SEED))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    eta = torch.tensor(EXT_DIST_ETA, device=dev)
+    operands = ops.pack_spec_operands(spec)
+    meshes = {n: [dev] * n for n in EXT_DIST_SHARDS}
+    steps = {n: distributed.make_distributed_step(spec, m) for n, m in meshes.items()}
+    ms = {"unsharded": [], **{n: [] for n in EXT_DIST_SHARDS}}
+    worst = {n: {"y_max_abs": 0.0, "q_rel": 0.0} for n in EXT_DIST_SHARDS}
+    one_shard_bitwise = True
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    for t in range(cfg.T):
+        state = ogasched.OGAState(y=y, eta=eta, t=t)
+        (nxt, q_ref), dt = timed(lambda: ogasched.oga_step(spec, state, arr[t], 1.0,
+                                                           backend="auto", operands=operands))
+        ms["unsharded"].append(dt)
+        for n, step in steps.items():
+            shards = distributed.shard_y(y, meshes[n])
+            (y_sh, q), dt = timed(lambda: step(shards, arr[t], eta))
+            ms[n].append(dt)
+            got = distributed.gather_y(y_sh)
+            worst[n] = {"y_max_abs": max(worst[n]["y_max_abs"], float((got - nxt.y).abs().max())),
+                        "q_rel": max(worst[n]["q_rel"], abs(float(q) - float(q_ref))
+                                     / abs(float(q_ref)))}
+            if n == 1:
+                one_shard_bitwise = one_shard_bitwise and bool(torch.equal(got, nxt.y))
+            del shards, y_sh, got
+        y = nxt.y
+    return {"config": EXT_DIST_CFG, "rows": [cfg.R * cfg.K, cfg.L], "steps": cfg.T,
+            "setup_s": setup_s, "ms_per_step": {str(k): statistics.median(v) for k, v in ms.items()},
+            "ms_per_step_all": {str(k): v for k, v in ms.items()},
+            "vs_unsharded": {str(k): v for k, v in worst.items()},
+            "one_shard_y_bitwise": one_shard_bitwise,
+            "feasible": bool(graph.feasible(spec, y)),
+            "resident_gb": base_gb, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def multi_errors(multi: dict, ref: dict) -> dict:
+    """§3.4 against its pins (over as many of the pinned slots as
+    ``multi`` ran): whether J is equal, the first pinned slot whose reward
+    parts from the reference's by more than TRAJ_TOL of the
+    prefix's largest (None: none), and the relative errors of the average
+    over the slots before it and of the whole run's average."""
+    n = min(len(multi["rewards"]), EXT_MULTI_PREFIX)
+    prefix, got = unpack_floats(ref["prefix"])[:n], multi["rewards"][:n]
+    parted = np.nonzero(np.abs(got - prefix) > TRAJ_TOL * np.abs(prefix).max())[0]
+    held = int(parted[0]) if parted.size else len(prefix)
+    return {"multi_J_equal": multi["J"] == ref["J"],
+            "multi_first_parted_slot": int(parted[0]) if parted.size else None,
+            "multi_prefix_avg_reward": metric_error(float(got[:held].mean()),
+                                                    float(prefix[:held].mean())),
+            "multi_avg_reward": metric_error(multi["avg_reward"], ref["avg_reward"])}
+
+
+def gang_errors(gang: dict, ref: dict) -> dict:
+    """§3.5 against its pins: the relative error of Σ q_t and the first
+    slot whose kept-port mask differs (None: none)."""
+    want_kept = unpack_events(ref["kept"], gang["kept"].shape)
+    bad = np.nonzero((want_kept != gang["kept"]).any(-1))[0]
+    return {"gang_sum_q": metric_error(gang["sum_q"], ref["sum_q"]),
+            "gang_first_kept_diff": int(bad[0]) if bad.size else None}
+
+
+def extension_errors(multi: dict, gang: dict, jobs: dict, ref: dict) -> dict:
+    """The port's readings of (a), (b) and (d) against their pins (the
+    grants and meshes of (d) must be equal)."""
+    return {**multi_errors(multi, ref["multi"]), **gang_errors(gang, ref["gang"]),
+            "jobs_grants_equal": jobs["grants"] == ref["jobs"]["grants"],
+            "jobs_meshes_equal": jobs["meshes"] == ref["jobs"]["meshes"]}
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2577,29 @@ def smoke(torch) -> dict:
         }
         oga_rows[label]["ms_by_row_block"], oga_rows[label]["launch_floor_ms_by_row_block"] = \
             by_row_block(lambda rb: og_kernel.oga_step_fused(*args, row_block=rb), N, L)
+    # the extensions path's shapes: §3.4 (R*K, L*J), §3.5 (R*K, L*Q), the
+    # job manager's (384, 4) and §3.2's on 1 and 4 shards; their operands
+    # stay for the autotune phase's tuned times
+    ext_args, ext_rows = {}, {}
+    for label, (N, L) in EXT_SHAPES.items():
+        args = ext_args[label] = step_inputs(np.random.default_rng([20261017, 4, N, L]), N, L)
+        plain = lambda: plain_rows(ref.oga_step_ref, args)
+        got = ops.oga_step_fused(*args)
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        del got, want
+        check(err <= OGA_STEP_ATOL, f"oga_step_fused {label} max abs err {err}")
+        t_b, by = bound(oga_bytes(N, L), proj_ops(N, L) + 16 * N * L)
+        plain_reps = EXT_PLAIN_REPS if N >= PLAIN_CHUNK_ROWS else TIMING_REPS
+        ext_rows[label] = {
+            "N": N, "L": L, "max_abs_err": err,
+            "ms": time_ms(lambda: ops.oga_step_fused(*args)),
+            "plain_ms": autotune.device_time_ms(plain, plain_reps), "plain_reps": plain_reps,
+            "plain_row_block": min(N, PLAIN_CHUNK_ROWS),
+            "bound_ms": t_b, "bound_by": by, "bytes": oga_bytes(N, L),
+            "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
+        }
     bisect_pin = autotune.KernelConfig(autotune.DEFAULT_ROW_BLOCK, "bisect",
                                        autotune.DEFAULT_BISECT_ITERS)
     oga_bisect_rows = {}
@@ -2228,7 +2766,8 @@ def smoke(torch) -> dict:
         bisect_network[str(L)] = {"rows": N, "row_blocks": [1, big], "bitwise_equal": True,
                                   "rows_binding": int(((np.clip(z, 0.0, a) * m).sum(1) > c).sum())}
     emit({"phase": "kernels", "row_block": autotune.DEFAULT_ROW_BLOCK,
-          "oga_step_fused": oga_rows, "oga_step_fused_bisect": oga_bisect_rows,
+          "oga_step_fused": oga_rows, "oga_step_fused_extensions": ext_rows,
+          "oga_step_fused_bisect": oga_bisect_rows,
           "proj_sortscan": proj_rows, "proj_bisect": bisect_rows,
           "wide_rows": wide_rows,
           "bisect_network": bisect_network,
@@ -2269,7 +2808,7 @@ def smoke(torch) -> dict:
     t0 = time.perf_counter()
     default_label = autotune.DEFAULT_CONFIG._replace(iters=0).label
     tuned = {}
-    for label, (N, L) in shapes.items():
+    for label, (N, L) in {**shapes, **EXT_SHAPES}.items():
         win, measured = autotune.tune("oga_step", N, L)
         check(autotune.lookup("oga_step", N, L) == win, f"oga_step {label}: winner not stored")
         # the bisect A/B at the winner's row block: both methods take the
@@ -2283,6 +2822,13 @@ def smoke(torch) -> dict:
             "bisect_row_block": ab_rb, "bisect_us": ab,
             "bisect_over_sortscan": {k: v / measured[win.label] for k, v in ab.items()},
         }
+    # the extensions path's shapes at their winners: time and launch floor
+    for label, (N, L) in EXT_SHAPES.items():
+        args, rb = ext_args.pop(label), autotune.lookup("oga_step", N, L).row_block
+        ext_rows[label].update({"tuned_row_block": rb,
+                                "tuned_ms": time_ms(lambda: ops.oga_step_fused(*args)),
+                                "tuned_launch_floor_ms": floor_ms(N, L, rb)})
+        del args
     tuned_proj = {}
     for label, (N, L) in proj_shapes.items():
         # the table keeps sortscan winners only, as dispatch projects by it;
@@ -2305,9 +2851,13 @@ def smoke(torch) -> dict:
     # fused and standalone) gives the bits of one block per row, at every
     # tuned shape and at a ragged row count
     bitwise = {}
-    for i, (label, (N, L)) in enumerate(shapes.items()):
+    rngs = {label: (lambda i=i: np.random.default_rng(seeds[i]))
+            for i, label in enumerate(shapes)}
+    rngs.update({label: (lambda N=N, L=L: np.random.default_rng([20261017, 5, N, L]))
+                 for label, (N, L) in EXT_SHAPES.items()})
+    for label, (N, L) in {**shapes, **EXT_SHAPES}.items():
         for n in (N, N - 5):
-            sargs = step_inputs(np.random.default_rng(seeds[i]), n, L)
+            sargs = step_inputs(rngs[label](), n, L)
             sargs[-1][::3, 2] = 1e4  # the capacity binds on two rows in three
             pargs = cuda(*proj_inputs(np.random.default_rng(seeds[4]), n, L, loose_every=3))
             runs = {
@@ -2329,6 +2879,9 @@ def smoke(torch) -> dict:
           "oga_step": tuned, "proj": tuned_proj, "seconds": tune_s,
           "measurements": autotune.measurement_count(),
           "launches": dict(zip(names, tune_launches)),
+          "extension_shapes_tuned": {k: {f: r[f] for f in ("N", "L", "tuned_row_block",
+                                                            "tuned_ms", "tuned_launch_floor_ms")}
+                                     for k, r in ext_rows.items()},
           "bitwise_equal_row_blocks": bitwise,
           "timing": f"us: device time per launch, median of {autotune.TUNE_REPEATS} "
                     f"launches between CUDA events behind a GPU spin"})
@@ -2520,6 +3073,19 @@ def smoke(torch) -> dict:
     stream_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
                        for name, w in zip(names[:2], wrappers[:2])}
 
+    # ------------------------------------------------------ extensions path
+    torch.cuda.empty_cache()
+    zero_launches()
+    autotune.reset_stats()
+    extensions_phase(torch, dev, res2["ogasched"].rewards)
+    ext_stats = autotune.cache_stats()
+    check(ext_stats["measurements"] == 0 and ext_stats["misses"] == 0,
+          f"the warmed extensions path measured or missed the autotune cache: {ext_stats}")
+    ext_counts = launches()
+    check(ext_counts[0] > 0, "oga_step_fused was not launched on the extensions path")
+    ext_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
+                    for name, w in zip(names[:2], wrappers[:2])}
+
     # ----------------------------------------------------------- serve path
     torch.cuda.empty_cache()
     zero_launches()
@@ -2533,12 +3099,14 @@ def smoke(torch) -> dict:
 
     # ---------------------------------------------------------- kernel line
     paths = {"autotune": tune_launches, "main": counts, "lifecycle": lifecycle_counts,
-             "stream": stream_counts, "serve": serve_counts}
+             "stream": stream_counts, "extensions": ext_counts, "serve": serve_counts}
     emit({"phase": "paths", "autotune_cache": stats, "stream_autotune_cache": stream_stats,
           "launches": {p: dict(zip(names, c)) for p, c in paths.items()},
           "main_launches_by_shape": main_by_shape,
           "lifecycle_launches_by_shape": lifecycle_by_shape,
           "stream_launches_by_shape": stream_by_shape,
+          "extensions_autotune_cache": ext_stats,
+          "extensions_launches_by_shape": ext_by_shape,
           "stream_configs_per_s": {"slot": stream["slot"]["configs_per_s"],
                                    "lifecycle": stream["lifecycle"]["configs_per_s"],
                                    "regret_validation": regret_line["configs_per_s"]}})
@@ -2569,8 +3137,10 @@ def smoke(torch) -> dict:
          "main_launches_by_shape": main_by_shape["oga_step_fused"],
          "lifecycle_launches_by_shape": lifecycle_by_shape["oga_step_fused"],
          "stream_launches_by_shape": stream_by_shape["oga_step_fused"],
+         "extensions_launches_by_shape": ext_by_shape["oga_step_fused"],
          "stream_rows": stream_times(oga_rows),
-         "max_abs_err": max([r["max_abs_err"] for r in oga_rows.values()]
+         "extensions_rows": ext_rows,
+         "max_abs_err": max([r["max_abs_err"] for r in [*oga_rows.values(), *ext_rows.values()]]
                             + [r["oga_step_fused"]["max_abs_err"] for r in wide_rows.values()]),
          "ms": oga_rows["fig2"]["ms"], "plain_ms": oga_rows["fig2"]["plain_ms"],
          "bound_ms": oga_rows["fig2"]["bound_ms"], "bound_by": oga_rows["fig2"]["bound_by"],
@@ -2582,6 +3152,7 @@ def smoke(torch) -> dict:
          "main_launches_by_shape": main_by_shape["proj_sortscan"],
          "lifecycle_launches_by_shape": lifecycle_by_shape["proj_sortscan"],
          "stream_launches_by_shape": stream_by_shape["proj_sortscan"],
+         "extensions_launches_by_shape": ext_by_shape["proj_sortscan"],
          "stream_rows": stream_times(proj_rows),
          "max_abs_err": max([r["max_abs_err"] for r in proj_rows.values()]
                             + [r["proj_sortscan"]["max_abs_err"] for r in wide_rows.values()]),

@@ -21,14 +21,34 @@ def _gain_terms(spec: ClusterSpec, y: torch.Tensor):
     return m, ym, kinds, alpha
 
 
+def port_sums(kinds: torch.Tensor, alpha: torch.Tensor, ym: torch.Tensor, m=1.0):
+    """Per-port gain sum_{r,k} f_r^k(ym) m (.., L) and quota s = sum_r ym
+    (.., L, K) of a masked allocation ym (.., L, R, K); kinds (.., K),
+    alpha (.., R, K). A sharded step sums both over its shards (the gain is
+    separable, the quota is the one collective), so they are returned
+    apart from the penalty."""
+    gain = (utilities.util_value(kinds[..., None, None, :], alpha[..., None, :, :], ym)
+            * m).sum((-2, -1))
+    return gain, ym.sum(-2)
+
+
+def penalty(beta: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Communication penalty max_k beta_k s_{l,k} (.., L) of a quota s."""
+    return (beta[..., None, :] * s).amax(-1)
+
+
+def totals(beta: torch.Tensor, x: torch.Tensor, gain: torch.Tensor, s: torch.Tensor):
+    """(sum_l x_l gain_l, sum_l x_l penalty_l): the Fig. 6 split of q."""
+    xf = x.to(gain.dtype)
+    return (xf * gain).sum(-1), (xf * penalty(beta, s)).sum(-1)
+
+
 def service_rates(spec: ClusterSpec, y: torch.Tensor) -> torch.Tensor:
     """Per-port speedup utility minus communication penalty (eq. 7 without
     the arrival multiplier): sum_{r,k} f_r^k(y) - max_k beta_k sum_r y^k."""
-    m, ym, kinds, alpha = _gain_terms(spec, y)
-    gain = (utilities.util_value(kinds, alpha, ym) * m).sum((-2, -1))  # (.., L)
-    s = ym.sum(-2)                                                      # (.., L, K)
-    penalty = (spec.beta[..., None, :] * s).amax(-1)                    # (.., L)
-    return gain - penalty
+    m, ym, _, _ = _gain_terms(spec, y)
+    gain, s = port_sums(spec.kinds, spec.alpha, ym, m)                  # (.., L), (.., L, K)
+    return gain - penalty(spec.beta, s)
 
 
 def port_rewards(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -39,6 +59,14 @@ def port_rewards(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.T
 def total_reward(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """q(x, y) = sum_l q_l (eq. 8)."""
     return port_rewards(spec, x, y).sum(-1)
+
+
+def decompose(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor):
+    """(total gain, total penalty) across ports: the Fig. 6 decomposition,
+    q = gain - penalty up to rounding (the two are summed apart)."""
+    m, ym, _, _ = _gain_terms(spec, y)
+    gain, s = port_sums(spec.kinds, spec.alpha, ym, m)
+    return totals(spec.beta, x, gain, s)
 
 
 def reward_grad(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

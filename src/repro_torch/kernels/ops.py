@@ -87,14 +87,21 @@ def pack_spec_operands(spec):
 pack_spec_operands_batch = pack_spec_operands
 
 
-def _kstar_rows(spec, y: torch.Tensor) -> torch.Tensor:
-    """1{k = k*_l} rows: k*_l = argmax_k beta_k sum_r y (eq. 27), first
-    index on ties as in reward_grad, broadcast to (.., R*K, L)."""
-    L, R, K = spec.L, spec.R, spec.K
+def kstar_index(spec, y: torch.Tensor) -> torch.Tensor:
+    """k*_l = argmax_k beta_k sum_r y (eq. 27) (.., L), first index on ties
+    as in reward_grad."""
     s = (y * spec.mask[..., None]).sum(-2)                              # (.., L, K)
-    kstar = F.one_hot(torch.argmax(spec.beta[..., None, :] * s, dim=-1), K).to(y.dtype)
+    return torch.argmax(spec.beta[..., None, :] * s, dim=-1)
+
+
+def _kstar_rows(spec, y: torch.Tensor, kstar=None) -> torch.Tensor:
+    """1{k = k*_l} broadcast to (.., R*K, L) kernel rows; k* from the local
+    y unless ``kstar`` ((.., L) indices) is given."""
+    L, R, K = spec.L, spec.R, spec.K
+    kstar = kstar_index(spec, y) if kstar is None else kstar
+    onehot = F.one_hot(kstar, K).to(y.dtype)                            # (.., L, K)
     lead = tuple(y.shape[:-3])
-    return kstar.transpose(-1, -2)[..., None, :, :].expand(*lead, R, K, L).reshape(
+    return onehot.transpose(-1, -2)[..., None, :, :].expand(*lead, R, K, L).reshape(
         *lead, R * K, L).contiguous()
 
 
@@ -123,7 +130,7 @@ def _dispatch_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal, tiling=
 
 
 def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
-                    tiling=None):
+                    tiling=None, kstar=None):
     """One OGA slot update y -> y(t+1) at the (L, R, K) spec level.
 
     backend:
@@ -135,10 +142,14 @@ def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
     ``operands`` carries ``pack_spec_operands(spec)`` so a loop over slots
     does not rebuild the static rows every step. ``tiling`` (an
     ``autotune.KernelConfig``) pins the kernel's row block; by default it
-    comes from the autotune cache.
+    comes from the autotune cache. ``kstar`` ((L,) indices) replaces the
+    k* of eq. 27 that the local y gives: a shard of the instances takes
+    the k* of the global quota (core.distributed).
     """
     backend = resolve_oga_backend(backend)
     if backend == "reference":
+        if kstar is not None:
+            raise ValueError("an explicit kstar runs on the fused backend only")
         g = _reward.reward_grad(spec, x, y)
         return _projection.project(spec, y + eta * g)
 
@@ -148,7 +159,7 @@ def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
     )
     x_rows = x.to(y.dtype)[None].expand(R * K, L).contiguous()
     rows = _dispatch_fused(
-        pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y),
+        pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y, kstar),
         _og.with_eta(scal_static, eta), tiling,
     )
     return unpack_rows(rows, L, R, K)

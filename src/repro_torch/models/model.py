@@ -83,7 +83,9 @@ def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 def prefill(params, cfg: ArchConfig, batch: dict):
     """Forward over the prompt; returns (last-token logits (B, vocab) in
     float32, the cache {"k", "v": (n_layers, B, S, G, hd), "kpos":
-    (n_layers, B, S) int32}). Only the last position's logits are formed."""
+    (n_layers, B, S) int32}, with int8 "k", "v" and float32 "k_scale",
+    "v_scale" (n_layers, B, S, G) under ``cfg.kv_cache_quant``). Only the
+    last position's logits are formed."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     x, caches = tf.stack_forward(params["blocks"], cfg, x, _positions(cfg, B, S, x.device),

@@ -33,7 +33,12 @@ for the reduced configs as they are (head dim 16, d_model 64: the CPU
 tests' bar). The job lifecycle
 on the card against the same run on the CPU: events exactly, rewards and
 occupancy within 1e-4 of their largest (the card's projection solves in
-double, the CPU's in float32).
+double, the CPU's in float32). The extensions path: the fused step at its
+packed shapes at 1e-5; the §3.2 step on 1 and 4 shards against the
+unsharded step (y bit for bit on one shard, 2e-5 on four, q 1e-5); §3.5's
+kept masks equal to the CPU's; the int8 KV cache's codes within one step
+of the CPU's and its decode within 1e-4 plus chip_smoke.INT8_FLIP_LOGIT a
+differing code.
 """
 import numpy as np
 import pytest
@@ -646,3 +651,92 @@ def test_offline_optimum_batch_on_the_card_matches_single_configs(dev):
         single = regret.offline_optimum(batch.spec[g], batch.arrivals[g], iters=200, device=dev)
         torch.testing.assert_close(y[g], single, rtol=0,
                                    atol=1e-6 * max(1.0, float(single.abs().max())))
+
+
+# ------------------------------------------------ the extensions path ------
+@pytest.mark.parametrize("N,L", [(768, 90), (768, 40), (384, 4), (196608, 100), (786432, 100)])
+def test_fused_kernel_at_the_extension_shapes(dev, N, L):
+    """The fused step at the packed shapes of §3.4 (J = 9), §3.5 (Q = 4),
+    the job manager and §3.2 on 4 and 1 shards, against its plain version
+    at 1e-5 (the plain version over blocks of rows, as chip_smoke.py runs
+    it there), at one row per block and at every legal row block bit for
+    bit."""
+    import chip_smoke
+
+    args = _step_args(_rng(7, N, L), N, L, dev)
+    got = toga.oga_step_fused(*args, row_block=1)
+    torch.testing.assert_close(got, chip_smoke.plain_rows(ref.oga_step_ref, args), rtol=0,
+                               atol=1e-5)
+    for cand in autotune.candidates("oga_step", N, L)[1:]:
+        assert torch.equal(toga.oga_step_fused(*args, row_block=cand.row_block), got)
+
+
+def test_sharded_step_on_the_card(dev):
+    """The §3.2 step on 1 and 4 shards of the card against the unsharded
+    fused step: y bit for bit on one shard, within 2e-5 on four (the
+    reference's bar); q within 1e-5 relative; one launch a shard."""
+    from repro_torch.core import distributed, graph
+
+    spec = trace.build_spec(trace.TraceConfig(L=20, R=4096, K=6, seed=0, density=0.25), dev)
+    y = graph.random_feasible_decision(spec, np.random.default_rng(0))
+    x = (torch.from_numpy(np.random.default_rng(1).random(20)) < 0.7).to(torch.float32).to(dev)
+    eta = torch.tensor(25.0, device=dev)
+    state, q_ref = ogasched.oga_step(spec, ogasched.OGAState(y=y, eta=eta, t=0), x, 1.0,
+                                     backend="auto")
+    for n in (1, 4):
+        mesh = [dev] * n
+        n0 = toga.oga_step_fused.launches
+        y_sh, q = distributed.make_distributed_step(spec, mesh)(distributed.shard_y(y, mesh),
+                                                                x, eta)
+        torch.cuda.synchronize()
+        assert toga.oga_step_fused.launches - n0 == n
+        got = distributed.gather_y(y_sh)
+        if n == 1:
+            assert torch.equal(got, state.y)
+        torch.testing.assert_close(got, state.y, rtol=0, atol=2e-5)
+        assert abs(float(q) - float(q_ref)) <= 1e-5 * abs(float(q_ref))
+
+
+def test_gang_steps_on_the_card_match_cpu(dev):
+    """40 §3.5 gang steps at chip_smoke.py's setup on the card and on the
+    CPU: the same kept-port mask every slot, Σ q within 1e-5 relative."""
+    import chip_smoke
+    from repro_torch.core import extensions
+
+    def run(device):
+        spec, arr = trace.make(trace.TraceConfig(**chip_smoke.EXT_MULTI_CFG), device=device)
+        req = chip_smoke.gang_task_requests(spec.L, spec.K)
+        espec, pot, _ = extensions.expand_gang(spec, req)
+        m_min = torch.from_numpy(chip_smoke.gang_m_min(req)).to(device)
+        y = torch.zeros((espec.L, espec.R, espec.K), device=device)
+        kept, qs = [], []
+        for t in range(40):
+            y, q = extensions.gang_oga_step(espec, arr[t], y, torch.tensor(5.0, device=device),
+                                            pot, m_min, spec.L)
+            kept.append(extensions.kept_ports(y, pot, m_min, spec.L).cpu())
+            qs.append(float(q))
+        return torch.stack(kept), np.sum(qs)
+
+    got_kept, got_q = run(dev)
+    want_kept, want_q = run("cpu")
+    assert torch.equal(got_kept, want_kept)
+    assert abs(got_q - want_q) <= 1e-5 * abs(want_q)
+
+
+def test_int8_cache_on_the_card_matches_cpu(dev):
+    """reduced(stablelm-3b) with the int8 KV cache, prefilled and decoded on
+    the card and on the CPU (chip_smoke.py's reduced_lm check): prefill
+    logits within 1e-4, int8 codes within one step, the decode within
+    1e-4 plus INT8_FLIP_LOGIT for each code that differs."""
+    import chip_smoke
+    from repro_torch.models import transformer as ttf
+
+    cfg = tconfigs.reduced(tconfigs.get("stablelm-3b"), kv_cache_quant=True)
+    params = TM.init_params(cfg, 0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)))
+    want = chip_smoke.prefill_then_decode(torch, TM, ttf, params, cfg, toks, 6)
+    got = chip_smoke.prefill_then_decode(torch, TM, ttf, chip_smoke.to_device(params, dev), cfg,
+                                         toks.to(dev), 6)
+    r = chip_smoke.int8_card_vs_cpu(torch, got, want)
+    assert r["finite"] and r["prefill_max_abs_dlogit"] <= 1e-4 and r["max_abs_dcode"] <= 1
+    assert r["decode_max_abs_dlogit"] <= 1e-4 + chip_smoke.INT8_FLIP_LOGIT * r["codes_differing"]

@@ -253,8 +253,6 @@ def test_unported_families_say_so(arch):
 
 def test_unported_options_raise():
     base = tconfigs.reduced(tconfigs.get("stablelm-3b"))
-    with pytest.raises(NotImplementedError, match="kv_cache_quant"):
-        ttf.init_cache(tconfigs.reduced(base, kv_cache_quant=True), 1, 4, torch.float32, "cpu")
     for knob in ("attn_head_parallel", "pure_dp", "mlp_ep"):
         with pytest.raises(ValueError, match="mesh"):
             TM.init_params(tconfigs.reduced(base, **{knob: True}), 0, "cpu")
