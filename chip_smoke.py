@@ -40,9 +40,12 @@ Phases, each printing one JSON line:
            Fig. 2 configs, one fused launch per step.
   flash    both flash-attention kernels against their plain version: the
            reference tests' shapes (plus hd 80, windows, softcaps, S = 1,
-           S around one 128-row tile, a ragged 8191, and hd 16, 48 and 112)
-           in float32 (the FFMA kernel) and bf16 (the tensor-core kernel),
-           and gemma2-27b's prefill shape, global and with window 4096, in
+           S around one 128-row tile, a ragged 8191, hd 16, 48 and 112, and
+           GQA rep 5 (25 query heads, window 1024) and 7) in float32 (the
+           FFMA kernel) and bf16 (the tensor-core kernel), the full-width
+           prefill shapes of dbrx, kimi, hymba, qwen2-vl and musicgen at
+           4096 tokens in bf16 (times, bounds and SDPA beside them), and
+           gemma2-27b's prefill shape, global and with window 4096, in
            bf16 and in float32, with CUDA-event times, the bound, the
            special-function floor of the softmax (sfu_floor_ms, bf16), the
            launch floor (float32: an empty kernel on its grid) and the time
@@ -53,7 +56,9 @@ Phases, each printing one JSON line:
            instructions in the built library.
   reduced_lm  model.prefill of reduced(gemma2-27b) and reduced(stablelm-3b)
            as they are (float32, head dim 16) on the card against the same
-           call on the CPU, through the float32 kernel; and
+           call on the CPU, through the float32 kernel; the reduced configs
+           of the other six (MoE, SSM, hybrid, vlm with 8 patches, audio)
+           prefilled and decoded 8 tokens, card against CPU; and
            reduced(stablelm-3b) with the int8 KV cache, prefilled and
            decoded 8 tokens, card against CPU.
   lifecycle the job lifecycle at benchmarks/bench_lifecycle.py's
@@ -118,6 +123,21 @@ Phases, each printing one JSON line:
            requests over 4 slots, each first token against prefill's; the
            same requests on the int8 KV cache (tokens recorded beside the
            bf16 cache's, the cache's bytes (hd + 4) / (2 hd) of bf16's).
+  lm_families  gemma's weights freed, the other six configs at full width
+           in bf16 from seeded random weights (dbrx-132b cut to 8 of 40
+           layers and kimi-k2-1t-a32b to 1 of 61, as far as the card
+           forces): a float32 check at 2 layers (all but kimi), a timed
+           prefill of 4096 tokens (qwen2-vl: 256 patches + 3840 tokens;
+           ms, tokens/s, peak memory, flash launches = attention layers),
+           decode against prefill by family (musicgen: prefill(S - 1) + a
+           step; MoE at the no-drop capacity factor E / k: the same at 256
+           tokens; mamba2 and hymba: prefill(S - 256) + 256 teacher-forced
+           steps against forward(S); qwen2-vl: the kernel's prefill
+           against the plain attention's), the MoE layer against its
+           expert-parallel local step (kept pairs exact), and the Engine
+           (8 requests over 4 slots, each against the same request alone in
+           a fresh Engine; musicgen's and MoE's first tokens also against
+           prefill's).
 
 The kernels phase also holds both sortscan kernels and both bisect kernels
 at the wide rows (L 257 to 4096, one block a row), with rows of zero
@@ -130,7 +150,8 @@ the lifecycle path (lifecycle, faults and grid_lifecycle), again for the
 stream path (stream, resume and regret_validation: no autotune miss or
 measurement either; each part checks its launches by shape), again for the
 extensions path (the extensions phase: no miss or measurement, launches by
-shape) and again for the serve path (lm_prefill and lm_serve); the sortscan kernels' main-
+shape) and again for the serve path (lm_prefill, lm_serve and
+lm_families); the sortscan kernels' main-
 path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
 line before the last lists every kernel with its launches on each path
 and their sum, its error and its times (flash attention as two kernels,
@@ -297,7 +318,19 @@ FLASH_SMALL_CASES = [
     ((2, 256, 6, 3, 48), None, 50.0), ((1, 256, 6, 1, 48), 64, None),
     ((1, 256, 8, 1, 112), None, None), ((1, 256, 8, 1, 112), 100, 50.0),
     ((2, 333, 8, 2, 112), 128, 50.0), ((1, 1000, 12, 4, 16), 16, 50.0),
+    ((1, 1500, 25, 5, 64), 1024, None), ((1, 640, 28, 4, 128), None, None),
+    ((2, 333, 25, 5, 64), 100, 50.0),
 ]
+# The full-width prefill shapes of lm_families, one 4096-token prompt, in
+# bf16: (B, S, H, G, hd), window. None of these configs softcaps, so one
+# SDPA call computes the same function (hymba's window as a boolean mask).
+FAMILY_FLASH_SHAPES = {
+    "dbrx-132b": ((1, 4096, 48, 8, 128), 0),
+    "kimi-k2-1t-a32b": ((1, 4096, 64, 8, 112), 0),
+    "hymba-1.5b": ((1, 4096, 25, 5, 64), 1024),
+    "qwen2-vl-7b": ((1, 4096, 28, 4, 128), 0),
+    "musicgen-medium": ((1, 4096, 24, 24, 64), 0),
+}
 # gemma2-27b's prefill shape: one 8192-token prompt (the model's context,
 # where the 4096 window bites on the local layers), 32 query heads over
 # 16 KV heads of 128.
@@ -321,6 +354,12 @@ LM_F32_DECODE_ATOL = 5e-3
 # the cache of a prefill of 2 x 96 tokens, card against CPU
 REDUCED_ARCHS = ("gemma2-27b", "stablelm-3b")
 REDUCED_TOKENS = (2, 96)
+# the other families' reduced configs (vlm: 8 patch embeddings before the
+# 96 tokens), prefilled and then decoded REDUCED_DECODE_STEPS tokens, card
+# against CPU at REDUCED_LOGIT_ATOL; 96 is a multiple of their ssm_chunk 16
+REDUCED_FAMILY_ARCHS = ("dbrx-132b", "kimi-k2-1t-a32b", "mamba2-780m", "hymba-1.5b",
+                        "qwen2-vl-7b", "musicgen-medium")
+REDUCED_DECODE_STEPS = 8
 REDUCED_LOGIT_ATOL = 1e-4
 LM_BF16_DECODE_ATOL = 0.7
 LM_PREFILL_REPS = 2
@@ -351,6 +390,67 @@ SERVE_CACHE_LEN = 512
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 SERVE_TIE_GAP = 2 * LM_BF16_DECODE_ATOL
+# lm_families: the other six configs at full width, in bf16, depth cut only
+# where the card forces it (None: every layer). dbrx-132b's layer is 6.5 GB
+# in bf16: 8 layers and the embeddings are 54.6 GB, and the init draws each
+# (16, 6144, 10752) expert tensor in float32 (4.2 GB) beside them; 10
+# would leave no room for that and the prefill. kimi-k2-1t-a32b's layer is
+# 34.2 GB: 1 layer and the embeddings are 38.8 GB, and its (384, 7168,
+# 2048) expert tensors are drawn in float32 (22.5 GB) beside them.
+FAMILY_LAYERS = {"musicgen-medium": None, "qwen2-vl-7b": None, "mamba2-780m": None,
+                 "hymba-1.5b": None, "dbrx-132b": 8, "kimi-k2-1t-a32b": 1}
+FAMILY_SEQ = 4096
+# MoE decode runs at capacity_factor = E / k (C = T: no assignment can
+# drop, as reduced() raises the factor to 8.0 for its tests) on a prompt of
+# MOE_DECODE_SEQ tokens; SSM and hybrid decode SSM_DECODE_STEPS teacher-
+# forced steps after prefill(FAMILY_SEQ - SSM_DECODE_STEPS), each against
+# forward(FAMILY_SEQ) at its position (S - 1 is no legal SSD length)
+MOE_DECODE_SEQ = 256
+SSM_DECODE_STEPS = 256
+# the first SSM_F32_SSD_STEPS of those steps again with prefill's and
+# forward's chunked SSD in float32, held at LM_BF16_DECODE_ATOL: what the
+# reference's bf16 SSD costs (FAMILY_BF16_ATOL) is not the decode path's
+SSM_F32_SSD_STEPS = 32
+SSM_F32_SSD_ATOL = 2.1  # 1.5 times mamba2's 1.37 (FAMILY_BF16_ATOL's comment)
+# the float32 check's depth (all but kimi, whose 2 float32 layers do not fit)
+FAMILY_F32_LAYERS = 2
+# apply_moe against _local_dispatch_combine(..., 0, E, E) plus the shared
+# expert at the first layer's MoE input, at the published factor: float32
+# outputs within this share of max |out| (sums in another order), the kept
+# (token, expert) pairs equal exactly
+MOE_ORACLE_RTOL = 1e-5
+# the bf16 bar of lm_families' decode checks and of its Engine, by config:
+# LM_BF16_DECODE_ATOL where the readings fit under it (NVIDIA H100 80GB
+# HBM3, 700 W: musicgen 0.25, qwen2-vl 0.34, dbrx 0.17, kimi 0.055; the
+# Engine's reused slots equal fresh ones exactly). mamba2 and hymba:
+# the reference's SSD runs in bf16 in a bf16 config (dt A cast down, its
+# cumulative sum over a 256-token chunk reaching thousands where bf16's
+# spacing is 16: ROADMAP Queue 3, item 11, tests/_ssd_bf16_drift.py), so
+# forward(S) and 256 decode steps after prefill(S - 256) read 9.94 and
+# 9.16 apart; with that SSD in float32 the first 32 of the same steps read
+# 1.37 and 0.93 (SSM_F32_SSD_ATOL), and at float32 throughout (2 layers)
+# 3.4e-4 and 3.9e-4. Each bar is 1.5 times its config's reading.
+FAMILY_BF16_ATOL = {**{arch: LM_BF16_DECODE_ATOL for arch in FAMILY_LAYERS},
+                    "mamba2-780m": 14.9, "hymba-1.5b": 13.7}
+# The Engine's first-token logits against prefill's (musicgen and the MoE
+# configs). dbrx-132b's eight requests read 0.16-0.84 and, apart, 1.30 and
+# 2.22 (the same in two runs); kimi's 0.047 seven times and 0.48 once;
+# musicgen's 0.23-0.35. The
+# Engine feeds a prompt of 16-32 tokens through decode one token at a
+# time, and over 8 layers of top-4 of 16 experts a near tie between two
+# experts' router scores can fall one way on prefill's bf16 hidden states
+# and the other on decode's, moving that token's output by a whole expert:
+# a jump, which the outliers look like (the one-step decode against
+# prefill, one token routed, reads 0.17). The bar is 1.5 times dbrx's 2.22.
+FAMILY_ENGINE_PREFILL_ATOL = {**FAMILY_BF16_ATOL, "dbrx-132b": 3.4}
+# the Engine: 8 greedy requests of 16-32 prompt tokens and 16 new over 4
+# slots, cache 128, so that 4 requests reuse a slot; each against the same
+# request alone in a fresh Engine of 4 slots
+FAMILY_SERVE_SLOTS = 4
+FAMILY_SERVE_CACHE_LEN = 128
+FAMILY_SERVE_REQUESTS = 8
+FAMILY_SERVE_PROMPT = (16, 32)
+FAMILY_SERVE_NEW_TOKENS = 16
 
 # The job lifecycle at benchmarks/bench_lifecycle.py:27 (the paper's
 # evaluation scale, work_mean 1200: jobs hold resources for many slots and
@@ -1085,10 +1185,32 @@ def flash_phase(torch, dev) -> dict:
             FLASH_F32_SDPA_ATOL)
     del q, k, v
     torch.cuda.empty_cache()
+    # lm_families' full-width prefill shapes in bf16: kernel against plain,
+    # times, bound, and SDPA on the same inputs (no softcap in these configs)
+    families = {}
+    for arch, (shape, window) in FAMILY_FLASH_SHAPES.items():
+        q, k, v = qkv(*shape, torch.bfloat16)
+        run = lambda: ops.flash_attention(q, k, v, window=window)
+        plain = lambda: ref.flash_attention_ref(q, k, v, window=window)
+        want_abs = ref.flash_attention_ref(q, k, v.abs(), window=window)
+        row = flash_bf16_errors(run(), plain(), want_abs)
+        del want_abs
+        check(row["max_err_over_bar"] <= 1.0, f"flash {arch} shape bf16: {row}")
+        t_b, by = flash_bound(*shape, window, 2)
+        sdpa = sdpa_yardstick(torch, q, k, v, window, run, FLASH_BF16_ATOL)
+        families[arch] = {"B_S_H_G_hd": shape, "window": window, "softcap": None, **row,
+                          "ms": device_ms(run, FLASH_TIMING_REPS),
+                          "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
+                          "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(shape[1], window),
+                          "library_ms": sdpa["library_ms"], "library_call": sdpa["call"],
+                          "kernel_vs_library_max_abs": sdpa["kernel_vs_library_max_abs"]}
+        del q, k, v
+    torch.cuda.empty_cache()
     lib = str(build.library_path("flash_attention.cu"))
     log = build.library_path("flash_attention.cu").with_suffix(".log").read_text()
     return {"phase": "flash", "phase_s": time.perf_counter() - t_phase,
             "small": small, "path_f32": path_f32, "path_bf16": path, "library": library,
+            "families_bf16": families,
             "library_f32": library_f32,
             "f32_atol": FLASH_F32_ATOL,
             "bf16_bar": f"min({FLASH_BF16_ATOL}, {FLASH_BF16_NEAR0} + {FLASH_BF16_RTOL} |o| + "
@@ -1143,8 +1265,8 @@ def reduced_lm_phase(torch, dev) -> dict:
     params = M.init_params(cfg, LM_SEED, "cpu")
     rng = np.random.default_rng(np.random.SeedSequence(LM_SEED, spawn_key=(len(REDUCED_ARCHS),)))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, REDUCED_TOKENS))
-    want = prefill_then_decode(torch, M, tf, params, cfg, toks, REDUCED_INT8_STEPS)
-    got = prefill_then_decode(torch, M, tf, to_device(params, dev), cfg, toks.to(dev),
+    want = prefill_then_decode(torch, M, tf, params, cfg, {"tokens": toks}, REDUCED_INT8_STEPS)
+    got = prefill_then_decode(torch, M, tf, to_device(params, dev), cfg, {"tokens": toks.to(dev)},
                               REDUCED_INT8_STEPS)
     int8 = int8_card_vs_cpu(torch, got, want)
     int8_bar = REDUCED_LOGIT_ATOL + INT8_FLIP_LOGIT * int8["codes_differing"]
@@ -1155,8 +1277,52 @@ def reduced_lm_phase(torch, dev) -> dict:
     check(int8["max_abs_dcode"] <= 1 and int8["max_abs_dscale"] <= REDUCED_LOGIT_ATOL / 127,
           f"reduced int8: cache card vs CPU {int8}")
     check(int8["decode_max_abs_dlogit"] <= int8_bar, f"reduced int8: decode card vs CPU {int8}")
+    # the other families: prefill, then REDUCED_DECODE_STEPS decode steps
+    for j, arch in enumerate(REDUCED_FAMILY_ARCHS):
+        cfg = configs.reduced(configs.get(arch))
+        params = M.init_params(cfg, LM_SEED, "cpu")
+        batch = lm_batch(torch, M, cfg, REDUCED_TOKENS[0], REDUCED_TOKENS[1], (10 + j,), "cpu")
+        want_l, want_d, want_c = prefill_then_decode(torch, M, tf, params, cfg, batch,
+                                                     REDUCED_DECODE_STEPS)
+        before = fa.flash_attention.kernel_launches["float32"]
+        got_l, got_d, got_c = prefill_then_decode(
+            torch, M, tf, to_device(params, dev), cfg, to_device(batch, dev), REDUCED_DECODE_STEPS)
+        torch.cuda.synchronize()
+        row = {"family": cfg.family, "layers": cfg.n_layers, "tokens": list(REDUCED_TOKENS),
+               "patches": cfg.n_patches, "decode_steps": REDUCED_DECODE_STEPS,
+               "f32_launches": fa.flash_attention.kernel_launches["float32"] - before,
+               "prefill_max_abs_dlogit": float((got_l.cpu() - want_l).abs().max()),
+               "decode_max_abs_dlogit": float((got_d.cpu() - want_d).abs().max()),
+               "cache_max_abs_diff_over_max": {
+                   n: float((got_c[n].cpu().float() - want_c[n].float()).abs().max()
+                            / max(float(want_c[n].float().abs().max()), 1.0))
+                   for n in want_c},
+               "max_abs_logit": float(want_d.abs().max()),
+               "finite": bool(torch.isfinite(got_l).all() and torch.isfinite(got_d).all())}
+        rows[arch] = row
+        emit({"phase": "reduced_lm", "arch": arch, **row})
+        attn_layers = cfg.n_layers if cfg.has_attn else 0
+        check(row["f32_launches"] == attn_layers,
+              f"reduced {arch}: {row['f32_launches']} float32 flash launches, "
+              f"{attn_layers} attention layers")
+        check(row["finite"], f"reduced {arch}: logits not finite")
+        check(row["prefill_max_abs_dlogit"] <= REDUCED_LOGIT_ATOL
+              and row["decode_max_abs_dlogit"] <= REDUCED_LOGIT_ATOL
+              and max(row["cache_max_abs_diff_over_max"].values()) <= REDUCED_LOGIT_ATOL,
+              f"reduced {arch}: card vs CPU {row}")
     return {"phase": "reduced_lm", "phase_s": time.perf_counter() - t_phase,
             "atol": REDUCED_LOGIT_ATOL, "archs": list(rows), "int8_arch": REDUCED_INT8_ARCH}
+
+
+def lm_batch(torch, M, cfg, B: int, n_tokens: int, spawn_key: tuple, dev) -> dict:
+    """A seeded prompt batch on ``dev``: ``n_tokens`` tokens a row and, for
+    vlm, cfg.n_patches patch embeddings (float32 N(0, 1)) before them."""
+    rng = np.random.default_rng(np.random.SeedSequence(LM_SEED, spawn_key=spawn_key))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, n_tokens))).to(dev)}
+    if cfg.family == "vlm":
+        pe = rng.standard_normal((B, cfg.n_patches, M.PATCH_DIM), dtype=np.float32)
+        batch["patch_embeds"] = torch.from_numpy(pe).to(dev)
+    return batch
 
 
 def to_device(params, dev):
@@ -1195,18 +1361,22 @@ def device_profile(torch, fn, n_top: int = 8) -> dict:
 
 def pad_cache(torch, tf, cache: dict, n: int) -> dict:
     """A prefill's cache with ``n`` empty slots appended on the sequence
-    axis (zeros; kpos EMPTY_KPOS), every entry (the int8 cache's scales
-    too)."""
+    axis (zeros; kpos EMPTY_KPOS), every attention entry (the int8 cache's
+    scales too); the SSM's conv window and state, which have no sequence
+    axis, as they are."""
     pad = lambda c, fill: torch.cat([c, torch.full_like(c[:, :, :n], fill)], dim=2)
-    return {k: pad(v, tf.EMPTY_KPOS if k == "kpos" else 0) for k, v in cache.items()}
+    return {k: v if k in tf.SSM_CACHE else pad(v, tf.EMPTY_KPOS if k == "kpos" else 0)
+            for k, v in cache.items()}
 
 
-def prefill_then_decode(torch, M, tf, params, cfg, toks, steps: int):
-    """prefill(toks), then ``steps`` serve_steps after it (token i of the
-    prompt fed at position S + i). Returns (prefill's logits, the steps'
-    logits (steps, B, vocab), the final cache)."""
-    S = toks.shape[1]
-    logits, cache = M.prefill(params, cfg, {"tokens": toks})
+def prefill_then_decode(torch, M, tf, params, cfg, batch, steps: int):
+    """prefill(batch), then ``steps`` serve_steps after it (token i of the
+    prompt fed at position S + i, S the prompt's length with any patches).
+    Returns (prefill's logits, the steps' logits (steps, B, vocab), the
+    final cache)."""
+    toks = batch["tokens"]
+    S = toks.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    logits, cache = M.prefill(params, cfg, batch)
     cache = pad_cache(torch, tf, cache, steps)
     outs = []
     for i in range(steps):
@@ -1320,14 +1490,7 @@ def lm_prefill_phase(torch, dev):
     int8["bf16_prefill_cache_kv_bytes"] = 2 * cfg.n_layers * LM_SEQ * cfg.n_kv * cfg.hd * 2
     del cache8
     # the same prefill with the plain attention in the kernel's place
-    real_attention = attn_lib.attention
-    attn_lib.attention = lambda q, k, v, window=None, attn_softcap=None: \
-        ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
-    try:
-        plain, cache = M.prefill(params, cfg, {"tokens": prompt})
-        del cache
-    finally:
-        attn_lib.attention = real_attention
+    plain = plain_attention_prefill(M, attn_lib, ref, params, cfg, {"tokens": prompt})
     vs_plain = compare_logits(torch, full, plain)
     ms = statistics.median(times[1:])
     line = {"phase": "lm_prefill", "phase_s": time.perf_counter() - t_phase,
@@ -1489,6 +1652,391 @@ def lm_serve_phase(torch, dev, cfg, params) -> dict:
               f"lm_serve: request {i} first token {row['first_token']} != prefill argmax "
               f"{row['prefill_argmax']} with a top-2 gap of {row['prefill_top2_gap']}")
     return line
+
+
+def attention_layers(cfg) -> int:
+    """The layers of a config that run the flash kernel in prefill."""
+    return cfg.n_layers if cfg.has_attn else 0
+
+
+def no_drop(cfg):
+    """An MoE config at capacity_factor E / k, where C = T and no
+    assignment can drop; any other config as it is."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def rows_vs(torch, want, got) -> dict:
+    """Logit rows (..., vocab), got against want: the largest |Δlogit|,
+    how many rows' argmax differ, and the largest top-2 gap of want's
+    among those rows (a logit bar forbids a difference past twice itself)."""
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = want.argmax(-1) != got.argmax(-1)
+    return {"rows": int(gap.numel()), "max_abs_dlogit": float((want - got).abs().max()),
+            "argmax_differ": int(differ.sum()),
+            "max_top2_gap_where_argmax_differs": float(torch.where(differ, gap, 0.0).max()),
+            "min_top2_gap": float(gap.min()),
+            "finite": bool(torch.isfinite(want).all() and torch.isfinite(got).all())}
+
+
+def plain_attention_prefill(M, attn_lib, ref, params, cfg, batch):
+    """model.prefill's logits with the plain attention in the kernel's
+    place."""
+    real = attn_lib.attention
+    attn_lib.attention = lambda q, k, v, window=None, attn_softcap=None: \
+        ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+    try:
+        logits, cache = M.prefill(params, cfg, batch)
+        del cache
+    finally:
+        attn_lib.attention = real
+    return logits
+
+
+def family_decode_check(torch, params, cfg, dev, spawn_key) -> dict:
+    """Decode against prefill, by family (module docstring, lm_families)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+
+    if cfg.n_experts:
+        cfg = no_drop(cfg)
+        batch = lm_batch(torch, M, cfg, 1, MOE_DECODE_SEQ, spawn_key, dev)
+        full, step = decode_after_prefill(torch, M, tf, params, cfg, batch["tokens"])
+        return {"check": "prefill(S - 1) + serve_step vs prefill(S), capacity_factor E / k",
+                "prompt_tokens": MOE_DECODE_SEQ, "capacity_factor": cfg.capacity_factor,
+                **rows_vs(torch, full, step)}
+    if cfg.has_ssm:
+        return teacher_forced(torch, params, cfg, dev, spawn_key, SSM_DECODE_STEPS)
+    if cfg.family == "vlm":
+        batch = lm_batch(torch, M, cfg, 1, FAMILY_SEQ - cfg.n_patches, spawn_key, dev)
+        kernel, cache = M.prefill(params, cfg, batch)
+        del cache
+        plain = plain_attention_prefill(M, attn_lib, ref, params, cfg, batch)
+        return {"check": "prefill with the flash kernel vs with the plain attention "
+                         "(the reference's decode positions are not prefill's)",
+                "prompt_tokens": FAMILY_SEQ, **rows_vs(torch, plain, kernel)}
+    toks = lm_batch(torch, M, cfg, 1, FAMILY_SEQ, spawn_key, dev)["tokens"]
+    full, step = decode_after_prefill(torch, M, tf, params, cfg, toks)
+    return {"check": "prefill(S - 1) + serve_step vs prefill(S)", "prompt_tokens": FAMILY_SEQ,
+            **rows_vs(torch, full, step)}
+
+
+def teacher_forced(torch, params, cfg, dev, spawn_key, n: int) -> dict:
+    """prefill(S - SSM_DECODE_STEPS) (a legal SSD length), then n <=
+    SSM_DECODE_STEPS teacher-forced serve_steps, each step's logits against
+    forward(S) at its position (S = FAMILY_SEQ)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+
+    S, p = FAMILY_SEQ, FAMILY_SEQ - SSM_DECODE_STEPS
+    toks = lm_batch(torch, M, cfg, 1, S, spawn_key, dev)["tokens"]
+    full = M.forward(params, cfg, {"tokens": toks})[0, p:p + n]
+    _, cache = M.prefill(params, cfg, {"tokens": toks[:, :p]})
+    cache = pad_cache(torch, tf, cache, n)
+    steps = []
+    for pos in range(p, p + n):
+        lg, cache = M.serve_step(params, cfg, cache, toks[:, pos:pos + 1], pos)
+        steps.append(lg[0])
+    del cache
+    return {"check": f"prefill(S - {S - p}) + {n} teacher-forced serve_steps vs forward(S)",
+            "prompt_tokens": S, **rows_vs(torch, full, torch.stack(steps))}
+
+
+def teacher_forced_f32_ssd(torch, params, cfg, dev, spawn_key) -> dict:
+    """``teacher_forced`` over SSM_F32_SSD_STEPS steps with the chunked SSD
+    of prefill and forward computed in float32 (its inputs cast up, its
+    outputs back to the compute dtype); decode is as it is. Isolates what
+    the bf16 SSD's arithmetic costs (its cumsums of dt A over a chunk
+    reach thousands, where bf16's spacing is 16) from the decode path."""
+    from repro_torch.models import ssm
+
+    real = ssm.ssd_scan
+
+    def scan(x, dt, A, Bm, Cm, chunk, h0=None):
+        y, h = real(x.float(), dt.float(), A.float(), Bm.float(), Cm.float(), chunk,
+                    None if h0 is None else h0.float())
+        return y.to(x.dtype), h.to(x.dtype)
+
+    ssm.ssd_scan = scan
+    try:
+        res = teacher_forced(torch, params, cfg, dev, spawn_key, SSM_F32_SSD_STEPS)
+    finally:
+        ssm.ssd_scan = real
+    res["check"] += ", the SSD of prefill and forward in float32"
+    return res
+
+
+def moe_oracle(torch, params, cfg, dev, spawn_key) -> dict:
+    """The first layer's MoE input at a FAMILY_SEQ-token prompt, through
+    apply_moe and through _local_dispatch_combine(..., 0, E, E) plus the
+    shared expert, at the config's capacity factor."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm
+
+    batch = lm_batch(torch, M, cfg, 1, FAMILY_SEQ, spawn_key, dev)
+    x = M.embed_inputs(params, cfg, batch)
+    B, S, d = x.shape
+    p = params["blocks"][0]
+    ao, _ = tf.attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+                            M._positions(cfg, B, S, dev), tf.layer_windows(cfg)[0])
+    h = rms_norm(x + ao, p["ln2"], cfg.norm_eps).reshape(B * S, d)
+    E, k, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+    out, kept = moe.apply_moe(p["moe"], h, k, cf, return_kept=True)
+    local, local_kept = moe._local_dispatch_combine(p["moe"], h, k, cf, 0, E, E, return_kept=True)
+    if "shared" in p["moe"]:
+        local = local + moe._shared(p["moe"]["shared"], h)
+    return {"dtype": str(out.dtype).split(".")[-1], "tokens": B * S, "experts": E, "top_k": k,
+            "capacity_factor": cf, "capacity": moe.capacity(B * S, k, E, cf),
+            "kept_pairs_equal": bool(torch.equal(kept, local_kept)),
+            "kept_assignments": int(kept.sum()),
+            "dropped_share": 1.0 - int(kept.sum()) / (B * S * k),
+            "max_abs_diff": float((out.float() - local.float()).abs().max()),
+            "max_abs_out": float(out.float().abs().max()),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def engine_run(torch, cfg, params, prompts, dev) -> dict:
+    """The Engine over ``prompts`` (greedy, FAMILY_SERVE_NEW_TOKENS new
+    each): the requests, the logits of every step that gave each its next
+    token, the slot each took and whether that slot had served a request
+    before, the steps and the seconds."""
+    from repro_torch.serve.engine import Engine, Request
+
+    eng = Engine(cfg, params, slots=FAMILY_SERVE_SLOTS, cache_len=FAMILY_SERVE_CACHE_LEN,
+                 device=dev)
+    reqs = [Request(prompt=p, max_new_tokens=FAMILY_SERVE_NEW_TOKENS) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    logits = {id(r): [] for r in reqs}
+    slot_of, reused, used = {}, {}, set()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.active):
+        eng._fill_slots()  # the step fills them too; here to see who sits where
+        occupant = list(eng.active)
+        n_before = [len(r.out) if r is not None else 0 for r in occupant]
+        for s, r in enumerate(occupant):
+            if r is not None and id(r) not in slot_of:
+                slot_of[id(r)], reused[id(r)] = s, s in used
+                used.add(s)
+        eng.step()
+        for s, r in enumerate(occupant):
+            if r is not None and len(r.out) > n_before[s]:
+                logits[id(r)].append(eng.last_logits[s].clone())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"reqs": reqs, "logits": [torch.stack(logits[id(r)]) for r in reqs],
+            "slots": [slot_of[id(r)] for r in reqs], "reused": [reused[id(r)] for r in reqs],
+            "steps": eng.steps_run, "seconds": seconds}
+
+
+def family_engine_check(torch, params, cfg, dev, spawn_key, bar: float,
+                        prefill_bar: float) -> dict:
+    """8 requests over 4 slots; the 4 that reuse a slot are held against
+    the same requests in a fresh Engine of 4 slots, one fresh slot each (the
+    same batch rows, so the same kernels): their logits at every step up to
+    the first token where the two runs differ within ``bar``, and where
+    they differ the fresh run's top-2 gap within 2 ``bar``. For configs
+    that prefill any prompt length (no SSM) and have no vlm front end,
+    every request's first-token logits also against prefill(prompt)'s,
+    within ``prefill_bar``."""
+    from repro_torch.models import model as M
+
+    cfg = no_drop(cfg)
+    rng = np.random.default_rng(np.random.SeedSequence(LM_SEED, spawn_key=spawn_key))
+    lo, hi = FAMILY_SERVE_PROMPT
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, FAMILY_SERVE_REQUESTS)]
+    batched = engine_run(torch, cfg, params, prompts, dev)
+    reused = [i for i, r in enumerate(batched["reused"]) if r]
+    fresh = engine_run(torch, cfg, params, [prompts[i] for i in reused], dev)
+    rows = []
+    for i, p in enumerate(prompts):
+        got = batched["reqs"][i].out
+        row = {"prompt_tokens": len(p), "slot": batched["slots"][i],
+               "reused_slot": batched["reused"][i], "new_tokens": len(got)}
+        if i in reused:
+            j = reused.index(i)
+            want = fresh["reqs"][j].out
+            n_same = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+            upto = min(n_same + 1, len(got))
+            g, w = batched["logits"][i][:upto], fresh["logits"][j][:upto]
+            row.update({"fresh_slot_reused": fresh["reused"][j], "tokens_equal_fresh": n_same,
+                        "first_token_max_abs_dlogit_vs_fresh": float((g[0] - w[0]).abs().max()),
+                        "max_abs_dlogit_vs_fresh": float((g - w).abs().max())})
+            if n_same < len(got):
+                top2 = torch.topk(w[n_same], 2).values
+                row["fresh_top2_gap_at_first_difference"] = float(top2[0] - top2[1])
+        if not cfg.has_ssm and cfg.family != "vlm":
+            pre, cache = M.prefill(params, cfg, {"tokens": torch.tensor([p], device=dev)})
+            del cache
+            top2 = torch.topk(pre[0], 2).values
+            row.update({"first_token_max_abs_dlogit_vs_prefill":
+                        float((batched["logits"][i][0] - pre[0]).abs().max()),
+                        "prefill_argmax": int(pre[0].argmax()), "first_token": got[0],
+                        "prefill_top2_gap": float(top2[0] - top2[1])})
+        rows.append(row)
+    held = [r for r in rows if r["reused_slot"]]
+    out = {"slots": FAMILY_SERVE_SLOTS, "cache_len": FAMILY_SERVE_CACHE_LEN,
+           "requests": FAMILY_SERVE_REQUESTS, "new_tokens": FAMILY_SERVE_NEW_TOKENS,
+           "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+           "engine_steps": batched["steps"], "seconds": batched["seconds"],
+           "ms_per_step": batched["seconds"] * 1e3 / batched["steps"],
+           "generated_tokens_per_s": sum(len(r.out) for r in batched["reqs"]) / batched["seconds"],
+           "requests_in_reused_slots": len(held),
+           "reused_equal_fresh": sum(r["tokens_equal_fresh"] == r["new_tokens"] for r in held),
+           "max_abs_dlogit_vs_fresh": max(r["max_abs_dlogit_vs_fresh"] for r in held),
+           "fresh_engine_steps": fresh["steps"], "requests": rows, "bar": bar,
+           "prefill_bar": prefill_bar}
+    check(len(held) == FAMILY_SERVE_REQUESTS - FAMILY_SERVE_SLOTS,
+          f"lm_families {cfg.name} engine: {len(held)} requests reused a slot")
+    for i, (r, req) in enumerate(zip(rows, batched["reqs"])):
+        check(req.done and r["new_tokens"] == FAMILY_SERVE_NEW_TOKENS,
+              f"lm_families {cfg.name} engine: request {i} ended with {r['new_tokens']} tokens")
+        if r["reused_slot"]:
+            check(not r["fresh_slot_reused"] and r["max_abs_dlogit_vs_fresh"] <= bar,
+                  f"lm_families {cfg.name} engine: request {i} in reused slot {r['slot']} vs a "
+                  f"fresh slot: max |dlogit| {r['max_abs_dlogit_vs_fresh']}")
+            check(r["tokens_equal_fresh"] == r["new_tokens"]
+                  or r["fresh_top2_gap_at_first_difference"] <= 2 * bar,
+                  f"lm_families {cfg.name} engine: request {i} tokens part from a fresh slot's {r}")
+        if "prefill_argmax" in r:
+            check(r["first_token_max_abs_dlogit_vs_prefill"] <= prefill_bar,
+                  f"lm_families {cfg.name} engine: request {i} first-step logits vs prefill {r}")
+            check(r["first_token"] == r["prefill_argmax"]
+                  or r["prefill_top2_gap"] <= 2 * prefill_bar,
+                  f"lm_families {cfg.name} engine: request {i} first token vs prefill {r}")
+    return out
+
+
+def hold_decode(label: str, res: dict, bar: float) -> None:
+    """A decode reading within ``bar``, and no argmax that differs where
+    the reference row's top-2 gap exceeds 2 ``bar`` (past that gap no two
+    rows within the bar can disagree: SERVE_TIE_GAP's rule)."""
+    check(res["finite"], f"{label}: logits not finite")
+    check(res["max_abs_dlogit"] <= bar, f"{label}: max |dlogit| {res['max_abs_dlogit']} > {bar}")
+    check(res["max_top2_gap_where_argmax_differs"] <= 2 * bar,
+          f"{label}: an argmax differs at a top-2 gap of "
+          f"{res['max_top2_gap_where_argmax_differs']}, past twice the bar")
+
+
+def lm_families_phase(torch, dev) -> dict:
+    """The other six configs at full width (FAMILY_LAYERS), one at a time:
+    the float32 check at 2 layers, then bf16: timed prefill, decode against
+    prefill, the MoE layer against its oracle, the Engine."""
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    lines = {}
+    for arch in FAMILY_LAYERS:
+        t_arch = time.perf_counter()
+        published = configs.get(arch)
+        cfg = published if FAMILY_LAYERS[arch] is None else \
+            dataclasses.replace(published, n_layers=FAMILY_LAYERS[arch])
+        spawn = (100,) + tuple(arch.encode())  # the config's own seeds
+        bf16_before = fa.flash_attention.kernel_launches["bf16"]
+        line = {"phase": "lm_families", "arch": arch, "family": cfg.family,
+                "layers": cfg.n_layers, "layers_published": published.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
+                "window": cfg.window, "attention_layers": attention_layers(cfg)}
+        part_s = line["part_s"] = {}
+        mark = lambda name, t: part_s.__setitem__(name, time.perf_counter() - t)
+
+        # float32, every width, 2 layers (kimi's do not fit)
+        if arch != "kimi-k2-1t-a32b":
+            cfg32 = dataclasses.replace(cfg, n_layers=FAMILY_F32_LAYERS, param_dtype="float32",
+                                        compute_dtype="float32")
+            params = M.init_params(cfg32, LM_SEED, dev)
+            f32 = family_decode_check(torch, params, cfg32, dev, spawn)
+            f32["layers"] = cfg32.n_layers
+            line["f32_2_layers"] = f32
+            if cfg.n_experts:
+                line["moe_oracle_f32"] = moe_oracle(torch, params, cfg32, dev, spawn)
+            del params
+            torch.cuda.empty_cache()
+            mark("f32_2_layers", t_arch)
+            hold_decode(f"lm_families {arch} float32", f32, LM_F32_DECODE_ATOL)
+
+        # bf16 at the cut depth
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, LM_SEED, dev)
+        torch.cuda.synchronize()
+        line["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["params"] = sum(t.numel() for t in _leaves(params))
+        batch = lm_batch(torch, M, cfg, 1, FAMILY_SEQ - cfg.n_patches, spawn, dev)
+        times = []
+        for _ in range(1 + LM_PREFILL_REPS):  # the first is the warm-up
+            torch.cuda.synchronize()
+            n0 = fa.flash_attention.kernel_launches["bf16"]
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(params, cfg, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            n = fa.flash_attention.kernel_launches["bf16"] - n0
+            check(n == attention_layers(cfg),
+                  f"lm_families {arch}: {n} bf16 flash launches in one prefill")
+            del cache
+        check(tuple(logits.shape) == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+              f"lm_families {arch}: last-token logits not finite or of the wrong shape")
+        ms = statistics.median(times[1:])
+        mark("prefills", t0)
+        line.update({"prompt_tokens": FAMILY_SEQ, "patches": cfg.n_patches,
+                     "ms_per_prefill": ms, "ms_per_prefill_all": times,
+                     "prefill_tokens_per_s": FAMILY_SEQ / (ms / 1e3),
+                     "flash_launches_per_prefill": attention_layers(cfg),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        t0 = time.perf_counter()
+        line["prefill_profile"] = device_profile(torch, lambda: M.prefill(params, cfg, batch), 6)
+        mark("prefill_profile", t0)
+        del batch
+        bar = FAMILY_BF16_ATOL[arch]
+        t0 = time.perf_counter()
+        line["bf16_decode"] = family_decode_check(torch, params, cfg, dev, spawn)
+        if cfg.has_ssm:
+            line["bf16_decode_f32_ssd"] = teacher_forced_f32_ssd(torch, params, cfg, dev, spawn)
+        if cfg.n_experts:
+            line["moe_oracle_bf16"] = moe_oracle(torch, params, cfg, dev, spawn)
+        mark("bf16_checks", t0)
+        t0 = time.perf_counter()
+        line["engine"] = family_engine_check(torch, params, cfg, dev, spawn, bar,
+                                             FAMILY_ENGINE_PREFILL_ATOL[arch])
+        mark("engine", t0)
+        del params
+        torch.cuda.empty_cache()
+        line["bf16_flash_launches"] = fa.flash_attention.kernel_launches["bf16"] - bf16_before
+        line["bars"] = {"bf16_max_abs_dlogit": bar, "f32_max_abs_dlogit": LM_F32_DECODE_ATOL,
+                        "engine_vs_prefill_max_abs_dlogit": FAMILY_ENGINE_PREFILL_ATOL[arch],
+                        "bf16_f32_ssd_max_abs_dlogit": SSM_F32_SSD_ATOL,
+                        "moe_oracle_f32_rtol": MOE_ORACLE_RTOL, "tie_gap": "2 x the bar"}
+        line["phase_s"] = time.perf_counter() - t_arch
+        emit(line)
+        lines[arch] = line
+        hold_decode(f"lm_families {arch} bf16", line["bf16_decode"], bar)
+        if "bf16_decode_f32_ssd" in line:
+            hold_decode(f"lm_families {arch} bf16, float32 SSD", line["bf16_decode_f32_ssd"],
+                        SSM_F32_SSD_ATOL)
+        for key in ("moe_oracle_f32", "moe_oracle_bf16"):
+            if key in line:
+                check(line[key]["kept_pairs_equal"] and line[key]["finite"],
+                      f"lm_families {arch} {key}: kept pairs differ {line[key]}")
+        if "moe_oracle_f32" in line:
+            o = line["moe_oracle_f32"]
+            check(o["max_abs_diff"] <= MOE_ORACLE_RTOL * o["max_abs_out"],
+                  f"lm_families {arch}: apply_moe vs _local_dispatch_combine {o}")
+    return {"phase": "lm_families", "phase_s": time.perf_counter() - t_phase,
+            "archs": list(lines),
+            "bf16_flash_launches": {a: ln["bf16_flash_launches"] for a, ln in lines.items()}}
 
 
 def unpack_events(blob: str, shape) -> np.ndarray:
@@ -3093,6 +3641,8 @@ def smoke(torch) -> dict:
     lm_serve_phase(torch, dev, lm_cfg, lm_params)
     del lm_params
     torch.cuda.empty_cache()
+    families = lm_families_phase(torch, dev)
+    emit(families)
     serve_counts = launches()
     for name, n in zip(names[3:], serve_counts[3:]):
         check(n > 0, f"{name} was not launched on the serve path")
@@ -3174,7 +3724,8 @@ def smoke(torch) -> dict:
          "launches": sum(by_path(3).values()),
          "launches_by_path": by_path(3),
          "max_abs_err": max([r["max_abs_err"] for r in small["bfloat16"]] +
-                            [r["max_abs_err"] for r in flash["path_bf16"].values()]),
+                            [r["max_abs_err"] for r in flash["path_bf16"].values()] +
+                            [r["max_abs_err"] for r in flash["families_bf16"].values()]),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"],
          "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
          "library_ms": flash["library"]["global"]["library_ms"],
@@ -3183,7 +3734,12 @@ def smoke(torch) -> dict:
                            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                         "library_ms": flash["library"]["window4096"]["library_ms"],
                         "library_vs_kernel_without_softcap_ms":
-                            flash["library"]["window4096"]["kernel_ms"]}},
+                            flash["library"]["window4096"]["kernel_ms"]},
+         "family_shapes": {arch: {**{k: row[k] for k in (
+             "B_S_H_G_hd", "window", "max_abs_err", "max_err_over_bar", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+             "launches": families["bf16_flash_launches"][arch]}
+             for arch, row in flash["families_bf16"].items()}},
         {"name": "flash_attention_f32", "kernel": "flash_attention_f32_kernel",
          "route": "cuda", "source": csrc + "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",

@@ -43,14 +43,16 @@ def spec_from_reference(obj, device: DeviceLike = None) -> ClusterSpec:
     )
 
 
-def _leaf_tensor(x, dev: torch.device, dtype) -> torch.Tensor:
-    """A numpy-like leaf as a ``dtype`` tensor on ``dev``. A bf16 array
-    (numpy dtype ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-    refuses) goes through float32, which holds every bf16 value exactly."""
+def _leaf_tensor(x, dev: torch.device) -> torch.Tensor:
+    """A numpy-like leaf as a tensor on ``dev`` in its own dtype: float32
+    stays float32, bf16 stays bf16. A bf16 array (numpy dtype
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) goes
+    through float32, which holds every bf16 value exactly."""
     arr = np.asarray(x)
-    if arr.dtype.kind not in "iub":
+    dtype = torch.bfloat16 if arr.dtype.name == "bfloat16" else None
+    if arr.dtype.kind not in "iubf" or dtype is not None:
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype)
+    return torch.from_numpy(np.array(arr, order="C")).to(device=dev, dtype=dtype)
 
 
 def _tree(x, fn):
@@ -61,18 +63,17 @@ def _tree(x, fn):
 
 def params_from_reference(cfg, params_np, device: DeviceLike = None) -> dict:
     """The port's LM parameters from the reference's pytree (as numpy
-    arrays, or anything ``np.asarray`` reads): every leaf in the config's
-    parameter dtype on ``device``, and ``blocks``, whose leaves the
-    reference stacks on a leading (n_layers,) axis, unstacked into a list
-    of per-layer dicts. Matrices keep the reference's ``x @ W`` layout."""
-    from repro_torch.models.model import param_dtype
-
+    arrays, or anything ``np.asarray`` reads): every leaf in the reference
+    leaf's own dtype on ``device`` (the MoE router and the SSM's ``A_log``,
+    ``D`` and ``dt_bias`` are float32 in a bf16 config, as in the
+    reference), and ``blocks``, whose leaves the reference stacks on a
+    leading (n_layers,) axis, unstacked into a list of per-layer dicts.
+    Matrices keep the reference's ``x @ W`` layout."""
     dev = resolve_device(device)
-    dtype = param_dtype(cfg)
-    out = {k: _tree(v, lambda a: _leaf_tensor(a, dev, dtype))
+    out = {k: _tree(v, lambda a: _leaf_tensor(a, dev))
            for k, v in params_np.items() if k != "blocks"}
     stacked = _tree(params_np["blocks"], np.asarray)
-    out["blocks"] = [_tree(stacked, lambda a, i=i: _leaf_tensor(a[i], dev, dtype))
+    out["blocks"] = [_tree(stacked, lambda a, i=i: _leaf_tensor(a[i], dev))
                      for i in range(cfg.n_layers)]
     return out
 

@@ -6,8 +6,13 @@ Counterpart of ``repro.launch.serve``, with the same flags and one more,
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --smoke \
       --requests 6 --max-new 12
 
-As in the reference, ``--smoke`` is a store_true flag that defaults to
-True, so the reduced config always runs.
+``--smoke`` (the default) serves the reduced config, as the reference's
+flag does; ``--no-smoke`` serves the config at its full width, whose bf16
+weights one 80 GB card holds for every config but dbrx-132b,
+kimi-k2-1t-a32b and qwen2-72b (the reference's ``store_true`` flag with
+``default=True`` cannot be turned off):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --no-smoke
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from repro_torch.serve.engine import Engine, Request
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b")
-    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--requests", type=int, default=6)

@@ -1,1 +1,1 @@
-"""The LM substrate's dense serving path (counterpart of ``repro.models``)."""
+"""The LM substrate's serving path, every family (counterpart of ``repro.models``)."""

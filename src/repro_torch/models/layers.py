@@ -1,13 +1,12 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU MLP, softcap, inits.
+"""Common layers: RMSNorm, RoPE and M-RoPE, SwiGLU MLP, softcap, inits.
 
-Counterpart of ``repro.models.layers`` (M-RoPE, for the vlm family, is not
-ported yet). Inits draw from an explicit ``torch.Generator`` on the
+Counterpart of ``repro.models.layers``. Inits draw from an explicit ``torch.Generator`` on the
 device the parameter lives on, in float32, and are cast once to the
 parameter dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -53,8 +52,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     ang = positions.float()[..., None] * inv  # (B, S, hd/2)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
+    return _rotate(x, sin, cos)
+
+
+def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """The split-halves rotation of (B, S, H, hd) by (B, S, 1, hd/2) angles,
+    in float32, returned in x's dtype."""
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: (B, S, 3) positions (t, h, w); the hd/2 frequencies
+    fall into ``sections`` bands in order, each rotated by its own
+    position stream, with ``apply_rope``'s split-halves rotation."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    inv = rope_freqs(hd, theta, x.device)
+    sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                     torch.tensor(list(sections), device=x.device))
+    ang = positions.float()[..., sec_id] * inv  # (B, S, hd/2)
+    return _rotate(x, torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :])
 
 
 # ---------------------------------------------------------------- MLP ------

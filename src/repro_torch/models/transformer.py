@@ -1,21 +1,28 @@
-"""Block assembly for the dense family: attention + SwiGLU layers.
+"""Block assembly: dense, MoE, SSM and hybrid layers.
 
-Counterpart of the dense branch of ``repro.models.transformer``. Layer
-parameters are a list of per-layer dicts (the reference stacks them on a
-leading (n_layers,) axis for ``jax.lax.scan``; ``convert.
-params_from_reference`` unstacks them), and a Python loop over layers
-takes the place of the scan; the per-layer window rides along as an int.
-Decode caches stay stacked, (n_layers, B, S, G, hd), as in the reference,
-and ``stack_decode`` writes each layer's new key, value and position into
-them in place. With ``cfg.kv_cache_quant`` K and V are stored int8 with a
-float32 scale per (token, head), ``k_scale`` and ``v_scale`` of shape
-(n_layers, B, S, G): prefill emits that layout and decode quantises the new
-token's K/V into its slot and dequantises the cache to attend.
+Counterpart of ``repro.models.transformer``. Layer parameters are a list
+of per-layer dicts (the reference stacks them on a leading (n_layers,)
+axis for ``jax.lax.scan``; ``convert.params_from_reference`` unstacks
+them), and a Python loop over layers takes the place of the scan; the
+per-layer window rides along as an int. A layer holds attention where
+``cfg.has_attn``, a Mamba-2 mixer where ``cfg.has_ssm`` (the hybrid family
+both, mixed as 0.5 (rms_norm(attn, fuse_a) + rms_norm(ssm, fuse_s))), and
+an MoE layer (``n_experts`` > 0) or a SwiGLU MLP (``d_ff`` > 0) after it.
 
-Families other than dense (moe, ssm, hybrid, vlm, audio) and the mesh
-knobs (``attn_head_parallel``, ``pure_dp``, ``mlp_ep``, which do nothing
-on one device) are not ported: ``check_supported`` raises for a config
-that asks for them.
+Decode caches stay stacked, as in the reference: "k", "v" (n_layers, B,
+S, G, hd) and "kpos" (n_layers, B, S) where the config has attention,
+"conv" (n_layers, B, K - 1, di + 2 n) and "state" (n_layers, B, H, P, N)
+where it has an SSM. ``stack_decode`` writes each layer's new key, value
+and position into them in place, and copies the SSM's new conv window and
+state back into its layer. With ``cfg.kv_cache_quant`` K and V are
+stored int8 with a float32 scale per (token, head), ``k_scale`` and
+``v_scale`` of shape (n_layers, B, S, G): prefill emits that layout and
+decode quantises the new token's K/V into its slot and dequantises the
+cache to attend.
+
+The mesh knobs (``attn_head_parallel``, ``pure_dp``, ``mlp_ep``) do
+nothing on one device: ``check_supported`` raises for a config that asks
+for them (ROADMAP Queue 1, item 15h).
 """
 from __future__ import annotations
 
@@ -23,19 +30,20 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import apply_rope, he_init, rms_norm, swiglu_apply, swiglu_init
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (apply_mrope, apply_rope, he_init, rms_norm,
+                                       swiglu_apply, swiglu_init)
 
 # position held by an empty cache slot: above any real one
 EMPTY_KPOS = 2**30
 _MESH_KNOBS = ("attn_head_parallel", "pure_dp", "mlp_ep")
+# the SSM's decode-cache entries; every other entry has the sequence on axis 2
+SSM_CACHE = ("conv", "state")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a config this slice of the port does not run."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1); only dense configs run")
+    """Raise for a config the port does not run on one device."""
     knobs = [k for k in _MESH_KNOBS if getattr(cfg, k)]
     if knobs:
         raise ValueError(f"{cfg.name}: mesh knobs {knobs} have no meaning on one device")
@@ -58,8 +66,18 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype, device=gen.device)
-    p = {"ln1": zeros(), "attn": init_attn(gen, cfg, dtype)}
-    if cfg.d_ff > 0:
+    p = {"ln1": zeros()}
+    if cfg.has_attn:
+        p["attn"] = init_attn(gen, cfg, dtype)
+    if cfg.has_ssm:
+        p["ssm"] = ssm_lib.init_mamba2(gen, cfg, dtype)
+    if cfg.family == "hybrid":
+        p["fuse_a"], p["fuse_s"] = zeros(), zeros()  # learned fuse norms
+    if cfg.n_experts > 0:
+        p["ln2"] = zeros()
+        p["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.d_expert, cfg.n_experts,
+                                    cfg.n_shared_experts, dtype)
+    elif cfg.d_ff > 0:
         p["ln2"] = zeros()
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
@@ -81,8 +99,14 @@ def _qkv(p, cfg: ArchConfig, x, positions):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, cfg.n_kv, cfg.hd), positions, cfg.rope_theta)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv, cfg.hd)
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, cfg.n_kv, cfg.hd)
 
 
@@ -100,21 +124,47 @@ def attn_forward(p, cfg: ArchConfig, x, positions, window: int, collect=False):
     return out, {"k": k, "v": v}
 
 
+def _mix(p, cfg: ArchConfig, ao, so):
+    """The hybrid's fuse: 0.5 (rms_norm(attn, fuse_a) + rms_norm(ssm, fuse_s))."""
+    return 0.5 * (rms_norm(ao, p["fuse_a"], cfg.norm_eps) + rms_norm(so, p["fuse_s"], cfg.norm_eps))
+
+
+def _ffn(p, cfg: ArchConfig, x):
+    """The residual MLP or MoE after the mixer, where the layer has one."""
+    if "ln2" not in p:
+        return x
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        return x + moe_lib.apply_moe_auto(p["moe"], h, cfg)
+    return x + swiglu_apply(p["mlp"], h)
+
+
 def block_forward(p, cfg: ArchConfig, x, positions, window: int, collect=False):
-    """One layer; with ``collect`` also its decode-cache tensors."""
-    ao, kv = attn_forward(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                          positions, window, collect)
-    x = x + ao
-    if "ln2" in p:
-        x = x + swiglu_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, kv
+    """One layer; with ``collect`` also its decode-cache tensors (else None)."""
+    cache = {} if collect else None
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if cfg.has_attn:
+        ao, kv = attn_forward(p["attn"], cfg, h, positions, window, collect)
+        if collect:
+            cache.update(kv)
+    if cfg.has_ssm:
+        so = ssm_lib.apply_mamba2(p["ssm"], h, cfg, return_state=collect)
+        if collect:
+            so, sc = so
+            cache.update(sc)
+    if cfg.family == "hybrid":
+        x = x + _mix(p, cfg, ao, so)
+    else:
+        x = x + (so if cfg.has_ssm else ao)
+    return _ffn(p, cfg, x), cache
 
 
 def stack_forward(blocks, cfg: ArchConfig, x, positions, collect=False):
-    """Every layer in order; with ``collect`` also the stacked caches
-    {"k", "v"}: (n_layers, B, S, G, hd) (int8, with "k_scale" and
-    "v_scale" (n_layers, B, S, G), when ``cfg.kv_cache_quant``), filled
-    layer by layer."""
+    """Every layer in order; with ``collect`` also the stacked caches,
+    filled layer by layer: {"k", "v"}: (n_layers, B, S, G, hd) (int8, with
+    "k_scale" and "v_scale" (n_layers, B, S, G), when
+    ``cfg.kv_cache_quant``) where the config has attention, {"conv",
+    "state"} where it has an SSM."""
     caches = {} if collect else None
     for i, (p, w) in enumerate(zip(blocks, layer_windows(cfg))):
         x, kv = block_forward(p, cfg, x, positions, w, collect)
@@ -142,20 +192,27 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, device) -> dict:
-    """Stacked per-layer decode caches; ``kpos`` holds each slot's absolute
-    token position (EMPTY_KPOS when empty). With ``cfg.kv_cache_quant`` K
-    and V are int8 with float32 per-(token, head) scales: (hd + 4) / (2 hd)
-    of bf16's bytes."""
+    """Stacked per-layer decode caches. Attention: "k", "v" and "kpos", the
+    absolute token position of each slot (EMPTY_KPOS when empty); with
+    ``cfg.kv_cache_quant`` K and V are int8 with float32 per-(token, head)
+    scales: (hd + 4) / (2 hd) of bf16's bytes. SSM: "conv" and "state" in
+    ``dtype``, zeros."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.hd)
-    kv_dtype = torch.int8 if cfg.kv_cache_quant else dtype
-    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-    if cfg.kv_cache_quant:
-        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-    cache["kpos"] = torch.full((cfg.n_layers, batch, cache_len), EMPTY_KPOS,
-                               dtype=torch.int32, device=device)
+    cache = {}
+    if cfg.has_attn:
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.hd)
+        kv_dtype = torch.int8 if cfg.kv_cache_quant else dtype
+        cache["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+        if cfg.kv_cache_quant:
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache["kpos"] = torch.full((cfg.n_layers, batch, cache_len), EMPTY_KPOS,
+                                   dtype=torch.int32, device=device)
+    if cfg.has_ssm:
+        one = ssm_lib.init_mamba2_cache(cfg, batch, dtype, device)
+        for name in SSM_CACHE:
+            cache[name] = one[name].expand(cfg.n_layers, *one[name].shape).contiguous()
     return cache
 
 
@@ -186,17 +243,30 @@ def attn_decode(p, cfg: ArchConfig, x, cache_slice: dict, pos, positions, window
 
 
 def block_decode(p, cfg: ArchConfig, x, cache_slice: dict, pos, positions, window: int):
+    """One layer's decode step. The attention's cache is written in place;
+    returns (x, the SSM's new {"conv", "state"} or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_decode(p["attn"], cfg, h, cache_slice, pos, positions, window)
-    if "ln2" in p:
-        x = x + swiglu_apply(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x
+    if cfg.has_attn:
+        ao = attn_decode(p["attn"], cfg, h, cache_slice, pos, positions, window)
+    sc = None
+    if cfg.has_ssm:
+        so, sc = ssm_lib.apply_mamba2_decode(
+            p["ssm"], h, {n: cache_slice[n] for n in SSM_CACHE}, cfg)
+    if cfg.family == "hybrid":
+        x = x + _mix(p, cfg, ao, so)
+    else:
+        x = x + (so if cfg.has_ssm else ao)
+    return _ffn(p, cfg, x), sc
 
 
 def stack_decode(blocks, cfg: ArchConfig, x, cache: dict, pos, positions):
     """One decode step through every layer; ``cache`` is updated in place
-    and returned."""
+    (the SSM's conv window and state copied back into their layer) and
+    returned."""
     for i, (p, w) in enumerate(zip(blocks, layer_windows(cfg))):
         layer = {name: t[i] for name, t in cache.items()}
-        x = block_decode(p, cfg, x, layer, pos, positions, w)
+        x, sc = block_decode(p, cfg, x, layer, pos, positions, w)
+        if sc is not None:
+            for name in SSM_CACHE:
+                layer[name].copy_(sc[name])
     return x, cache

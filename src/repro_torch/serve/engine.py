@@ -60,8 +60,14 @@ class Engine:
         self.queue.append(req)
 
     def _reset_slot(self, s: int) -> None:
-        """Invalidate a slot's cache rows for reuse (kpos sentinel)."""
-        self.cache["kpos"][:, s] = tf.EMPTY_KPOS
+        """Make a slot's cache rows new for reuse: the kpos sentinel where
+        the config has attention, a zero SSM state and conv window where it
+        has an SSM."""
+        if "kpos" in self.cache:
+            self.cache["kpos"][:, s] = tf.EMPTY_KPOS
+        for name in tf.SSM_CACHE:
+            if name in self.cache:
+                self.cache[name][:, s] = 0
         self.pos[s] = 0
 
     def _fill_slots(self) -> None:

@@ -30,7 +30,9 @@ derivation on the CPU); the LM on the
 card against the CPU in float32: 1e-3 on logits at head dim 64 (float32
 matmuls in another order, three layers deep, logits of size ~1-30), 1e-4
 for the reduced configs as they are (head dim 16, d_model 64: the CPU
-tests' bar). The job lifecycle
+tests' bar), the other families' reduced configs also through 8 decode
+steps, with their caches (K/V, the SSM's conv window and state) within
+1e-4 of their largest magnitude. The job lifecycle
 on the card against the same run on the CPU: events exactly, rewards and
 occupancy within 1e-4 of their largest (the card's projection solves in
 double, the CPU's in float32). The extensions path: the fused step at its
@@ -54,6 +56,7 @@ from repro_torch.kernels import oga_step as toga
 from repro_torch.kernels import proj_bisect as tpb
 from repro_torch.kernels import sortscan as tss
 from repro_torch.models import model as TM
+from repro_torch.models import transformer as ttf
 from repro_torch.sched import lifecycle, sweep, trace
 
 BISECT_ATOL = 5e-5
@@ -419,7 +422,9 @@ def _qkv(rng, B, S, H, G, hd, dev, dtype):
     (1, 128, 4, 2, 16, None, None), (1, 200, 4, 2, 16, 16, 50.0),
     (2, 96, 8, 1, 32, None, 30.0), (1, 256, 6, 3, 48, None, None),
     (1, 177, 4, 2, 48, 64, 50.0), (1, 130, 6, 2, 96, 100, None),
-    (1, 256, 8, 1, 112, None, None), (2, 150, 16, 2, 112, 64, 50.0)])
+    (1, 256, 8, 1, 112, None, None), (2, 150, 16, 2, 112, 64, 50.0),
+    (1, 1200, 25, 5, 64, 1024, None), (2, 200, 25, 5, 64, 100, 50.0),
+    (1, 300, 28, 4, 128, None, None), (1, 256, 24, 24, 64, None, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, B, S, H, G, hd, window, softcap, dtype):
     q, k, v = _qkv(_rng(9, S, hd), B, S, H, G, hd, dev, dtype)
@@ -558,11 +563,56 @@ def test_reduced_config_prefill_on_the_card_matches_cpu(dev, arch):
     torch.testing.assert_close(gcache["k"].cpu(), wcache["k"], atol=1e-4, rtol=0)
 
 
-def _to(params, dev):
-    """The model's parameter tree on ``dev``."""
-    return {k: ([{n: {m: t.to(dev) for m, t in d.items()} if isinstance(d, dict)
-                  else d.to(dev) for n, d in blk.items()} for blk in v]
-                if k == "blocks" else v.to(dev)) for k, v in params.items()}
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b", "mamba2-780m", "hymba-1.5b",
+                                  "qwen2-vl-7b", "musicgen-medium"])
+def test_reduced_family_prefill_and_decode_on_the_card_match_cpu(dev, arch):
+    """The other families' reduced configs (float32; vlm with its 8 patch
+    embeddings): prefill of 2 x 96 tokens, through the float32 kernel once
+    per attention layer, and 8 decode steps after it, on the card against
+    the CPU at 1e-4 on the logits; the caches (K/V, the SSM's conv window
+    and state) within 1e-4 of their largest magnitude."""
+    cfg = tconfigs.reduced(tconfigs.get(arch))
+    params = TM.init_params(cfg, 0, "cpu")
+    rng = _rng(14)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 96)))
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_patches, TM.PATCH_DIM)).astype(np.float32))
+    S = 96 + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+    def run(p, b, d):
+        logits, cache = TM.prefill(p, cfg, b)
+        cache = {k: v if k in ttf.SSM_CACHE else torch.cat(
+            [v, torch.full_like(v[:, :, :8], ttf.EMPTY_KPOS if k == "kpos" else 0)], dim=2)
+            for k, v in cache.items()}
+        steps = []
+        for i in range(8):
+            lg, cache = TM.serve_step(p, cfg, cache, b["tokens"][:, i:i + 1], S + i)
+            steps.append(lg)
+        return logits, torch.stack(steps), cache
+
+    want = run(params, batch, "cpu")
+    before = tfa.flash_attention.kernel_launches["float32"]
+    got = run(_to(params, dev), _to(batch, dev), dev)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.kernel_launches["float32"] == before + (
+        cfg.n_layers if cfg.has_attn else 0)
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], atol=1e-4, rtol=0)
+    for name, t in want[2].items():
+        scale = max(float(t.float().abs().max()), 1.0)
+        torch.testing.assert_close(got[2][name].cpu(), t, atol=1e-4 * scale, rtol=0)
+
+
+def _to(tree, dev):
+    """A tree of dicts and lists of tensors (a model's parameters, a
+    batch) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 @pytest.mark.parametrize("name", ["ogasched", "fairness", "hesrpt"])
@@ -734,9 +784,9 @@ def test_int8_cache_on_the_card_matches_cpu(dev):
     cfg = tconfigs.reduced(tconfigs.get("stablelm-3b"), kv_cache_quant=True)
     params = TM.init_params(cfg, 0, "cpu")
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 40)))
-    want = chip_smoke.prefill_then_decode(torch, TM, ttf, params, cfg, toks, 6)
+    want = chip_smoke.prefill_then_decode(torch, TM, ttf, params, cfg, {"tokens": toks}, 6)
     got = chip_smoke.prefill_then_decode(torch, TM, ttf, chip_smoke.to_device(params, dev), cfg,
-                                         toks.to(dev), 6)
+                                         {"tokens": toks.to(dev)}, 6)
     r = chip_smoke.int8_card_vs_cpu(torch, got, want)
     assert r["finite"] and r["prefill_max_abs_dlogit"] <= 1e-4 and r["max_abs_dcode"] <= 1
     assert r["decode_max_abs_dlogit"] <= 1e-4 + chip_smoke.INT8_FLIP_LOGIT * r["codes_differing"]

@@ -185,7 +185,8 @@ def test_one_code_flip_stays_under_chip_smoke_bar():
         return torch.stack(out)
 
     base = decode(cache)
-    _, want, _ = chip_smoke.prefill_then_decode(torch, TM, ttf, params, cfg, toks, steps)
+    _, want, _ = chip_smoke.prefill_then_decode(torch, TM, ttf, params, cfg, {"tokens": toks},
+                                                steps)
     assert torch.equal(base, want)
     pick = np.random.default_rng(0)
     worst = 0.0

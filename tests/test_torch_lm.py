@@ -243,14 +243,6 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-780m", "hymba-1.5b", "qwen2-vl-7b",
-                                  "musicgen-medium"])
-def test_unported_families_say_so(arch):
-    cfg = tconfigs.reduced(tconfigs.get(arch))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_params(cfg, 0, "cpu")
-
-
 def test_unported_options_raise():
     base = tconfigs.reduced(tconfigs.get("stablelm-3b"))
     for knob in ("attn_head_parallel", "pure_dp", "mlp_ep"):
