@@ -138,6 +138,23 @@ Phases, each printing one JSON line:
            (8 requests over 4 slots, each against the same request alone in
            a fresh Engine; musicgen's and MoE's first tokens also against
            prefill's).
+  train    the training slice. First the flash backward kernels
+           (csrc/flash_attention_bwd.cu) against their plain version on
+           the card, in float32 and bf16, at BWD_SMALL_CASES and at
+           stablelm-3b's training shape and gemma2-27b's global layer
+           (with and without its 4096 window), two launches bit for bit,
+           with times, the bound and SDPA's backward at the last three.
+           Then the train path: stablelm-3b at full width and 2 layers,
+           loss and backward through the kernels against the plain
+           attention pair (float32 and bf16; wq, wk and wv get gradients);
+           stablelm-3b at full width and depth in bf16 through
+           launch/train.py's build and the Trainer (4 x 4096 tokens, 1 +
+           3 steps: ms a step, tokens/s, peak memory, 2 x 32 forward and
+           32 backward launches a step, one step under the profiler for
+           the backward kernels' share); every family's reduced config,
+           one train step on the card against the CPU; the Trainer's
+           restart on the card, bit for bit; 25 steps with compressed
+           gradients.
 
 The kernels phase also holds both sortscan kernels and both bisect kernels
 at the wide rows (L 257 to 4096, one block a row), with rows of zero
@@ -150,12 +167,14 @@ the lifecycle path (lifecycle, faults and grid_lifecycle), again for the
 stream path (stream, resume and regret_validation: no autotune miss or
 measurement either; each part checks its launches by shape), again for the
 extensions path (the extensions phase: no miss or measurement, launches by
-shape) and again for the serve path (lm_prefill, lm_serve and
-lm_families); the sortscan kernels' main-
+shape), again for the serve path (lm_prefill, lm_serve and
+lm_families) and again for the train path (train after its kernel
+checks); the sortscan kernels' main-
 path launches by packed shape must be those of MAIN_LAUNCHES_BY_SHAPE. The
 line before the last lists every kernel with its launches on each path
 and their sum, its error and its times (flash attention as two kernels,
-bf16 and float32, behind one wrapper); the last line is {"ok": true,
+bf16 and float32, behind one wrapper; its backward as the three kernels of
+one call, counted by dtype); the last line is {"ok": true,
 "device": {...}}, printed only after every check passed, and the exit code
 is then 0. A failed check raises and the exit code is 1; no CUDA device
 exits 2, and a directory without src/repro_torch beside the script exits
@@ -165,6 +184,7 @@ the reference package ``repro``.
 from __future__ import annotations
 
 import base64
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -451,6 +471,76 @@ FAMILY_SERVE_CACHE_LEN = 128
 FAMILY_SERVE_REQUESTS = 8
 FAMILY_SERVE_PROMPT = (16, 32)
 FAMILY_SERVE_NEW_TOKENS = 16
+
+# Phase train: the training slice (ROADMAP Queue 1, item 15g). The flash
+# backward kernels against their plain version at these shapes (the last
+# three also timed: stablelm-3b's training shape and gemma2-27b's global
+# layer, with and without its 4096 window), in float32 and bf16. Bars:
+# float32, each of dq, dk, dv within BWD_F32_RTOL_OF_MAX of its largest
+# magnitude of the plain version (both add in float32, in other orders;
+# readings 1.9e-7 to 5.2e-6 in call 1 of PR 22); bf16, the kernel's
+# distance from the float32 plain gradient of the same (upcast) inputs at
+# most BWD_BF16_PLAIN_FACTOR times the bf16 plain version's own, plus
+# BWD_BF16_RTOL_OF_MAX of the largest magnitude (both compute in float32 and
+# round once, so the bf16 plain version is the rounding alone); two
+# launches bit for bit (no atomics).
+BWD_SMALL_CASES = [
+    ((2, 96, 4, 2, 16), 0, None),
+    ((1, 256, 4, 1, 16), 16, 50.0),
+    ((1, 1000, 8, 2, 64), 0, None),     # a ragged S
+    ((2, 512, 8, 8, 80), 0, None),
+    ((1, 1024, 28, 4, 128), 0, None),   # GQA rep 7
+    ((1, 4096, 25, 5, 64), 1024, None),  # hymba-1.5b's
+    ((1, 4096, 16, 8, 112), 0, None),
+]
+BWD_PATH_SHAPES = {
+    "stablelm-3b": ((4, 4096, 32, 32, 80), 0, None),
+    "gemma2-27b": ((1, 8192, 32, 16, 128), 0, 50.0),
+    "gemma2-27b_window4096": ((1, 8192, 32, 16, 128), 4096, 50.0),
+}
+BWD_F32_RTOL_OF_MAX = 1e-4
+BWD_BF16_PLAIN_FACTOR = 2.0
+BWD_BF16_RTOL_OF_MAX = 1e-3
+BWD_TIMING_REPS = 5
+# the five products of the gradient (QK^T, dO V^T, P^T dO, dS^T Q, dS K),
+# each 2 hd FLOPs a head a visible pair
+BWD_PRODUCTS = 5
+# The slice: stablelm-3b at full width. First 2 of its 32 layers, float32
+# params and compute, on one row of 4096 tokens of batch_at(step 0): loss
+# and backward through the kernels against the same through the plain
+# attention pair (loss within TRAIN_LOSS_RTOL, every gradient leaf within
+# TRAIN_GRAD_RTOL_OF_MAX of its largest magnitude: the kernels' float32
+# differences from the plain pair, ~1e-6, carried through two layers), and
+# the same in bf16 under the bf16 rule above, per leaf. Then all 32 layers
+# in bf16 through launch/train.py's build: TRAIN_BATCH x TRAIN_SEQ tokens
+# (train_4k's sequence, 4 of its 256 sequences), the CLI's lr and warm-up,
+# TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS steps, a fresh checkpoint
+# directory and no checkpoint written; each step 2 x 32 forward launches
+# (forward, remat recompute) and 32 backward calls; peak below the card.
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_SLICE_LAYERS = 2
+TRAIN_SLICE_TOKENS = 4096
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+TRAIN_WARMUP_STEPS = 1
+TRAIN_TIMED_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL_OF_MAX = 1e-4
+TRAIN_PEAK_BYTES = 80e9
+# every family's reduced config (float32, head dim 16), one train step on
+# the card against the CPU (the bars above); the Trainer's restart on the
+# card (reduced stablelm-3b, 8 steps, checkpoints every 4, a failure
+# injected at step 5, then resumed: the last 3 losses and every state leaf
+# bit for bit an uninterrupted run's); 25 steps with compressed gradients
+# (tests/test_substrate.py:143: the last 5 losses' mean below the first 5's)
+TRAIN_REDUCED_ARCHS = ("stablelm-3b", "gemma2-27b", "qwen2-72b", "starcoder2-15b",
+                       "dbrx-132b", "kimi-k2-1t-a32b", "mamba2-780m", "hymba-1.5b",
+                       "qwen2-vl-7b", "musicgen-medium")
+TRAIN_REDUCED_TOKENS = (2, 32)
+TRAIN_RESTART_STEPS = 8
+TRAIN_RESTART_EVERY = 4
+TRAIN_RESTART_FAIL_AT = 5
+TRAIN_COMPRESS_STEPS = 25
 
 # The job lifecycle at benchmarks/bench_lifecycle.py:27 (the paper's
 # evaluation scale, work_mean 1200: jobs hold resources for many slots and
@@ -954,6 +1044,21 @@ def flash_f32_build(ptxas: dict) -> dict:
         hit = re.search(r"flash_attention_f32_kernelILi(\d+)E", name)
         if hit:
             out[int(hit.group(1))] = rep
+    return out
+
+
+def flash_bwd_kernels(ptxas: dict) -> dict:
+    """ptxas's registers, stack and spills of each flash backward kernel
+    instantiation, as "kernel<dtype,hd>" (from ``ptxas_by_kernel``)."""
+    import re
+    out = {}
+    for name, rep in ptxas.items():
+        hit = re.search(r"(flash_bwd_\w+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+        if hit:
+            dtype = "float32" if hit.group(2) == "f" else "bf16"
+            out[f"{hit.group(1)}<{dtype},{hit.group(3)}>"] = {
+                k: rep[k] for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                    "spill_load_bytes")}
     return out
 
 
@@ -2039,6 +2144,413 @@ def lm_families_phase(torch, dev) -> dict:
             "bf16_flash_launches": {a: ln["bf16_flash_launches"] for a, ln in lines.items()}}
 
 
+def flash_bwd_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s):
+    """The least time the H100 could take for attention's gradient: the
+    BWD_PRODUCTS products, 2 hd FLOPs a head a visible pair each, at
+    ``ops_per_s``, or one read of q, k, v, o, dO and one write of dq, dk,
+    dv at the HBM rate; the larger."""
+    t_ops = BWD_PRODUCTS * 2 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
+    t_bytes = elem_bytes * B * S * hd * (4 * H + 4 * G) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_errors(got, plain, f32) -> dict:
+    """For dq, dk and dv: the largest magnitude of the float32 plain
+    gradient, the kernel's largest distance from the plain version of its
+    own dtype, and the kernel's and that plain version's from the float32
+    one."""
+    out = {}
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, f32):
+        out[name] = {"max_abs": float(w.abs().max()),
+                     "kernel_vs_plain": float((g.float() - p.float()).abs().max()),
+                     "kernel_vs_f32": float((g.float() - w).abs().max()),
+                     "plain_vs_f32": float((p.float() - w).abs().max())}
+    return out
+
+
+def bwd_bar(dtype: str, e: dict) -> float:
+    """A gradient's error over its bar (<= 1 passes): float32, the kernel
+    against the plain version at BWD_F32_RTOL_OF_MAX of the largest
+    magnitude; bf16, the kernel's distance from the float32 gradient
+    against BWD_BF16_PLAIN_FACTOR times the bf16 plain version's plus
+    BWD_BF16_RTOL_OF_MAX of the largest magnitude."""
+    if dtype == "float32":
+        return e["kernel_vs_plain"] / (BWD_F32_RTOL_OF_MAX * e["max_abs"])
+    return e["kernel_vs_f32"] / (BWD_BF16_PLAIN_FACTOR * e["plain_vs_f32"]
+                                 + BWD_BF16_RTOL_OF_MAX * e["max_abs"])
+
+
+def sdpa_bwd_yardstick(torch, q, k, v, do, window: int) -> dict:
+    """SDPA's backward without the softcap on the same inputs: the time of
+    forward plus backward under autograd, less the forward's (the call as
+    ``sdpa_yardstick`` makes it: is_causal with enable_gqa for a bf16
+    global layer, else the KV heads expanded outside the timed calls, and
+    the boolean window mask for a windowed layer)."""
+    import torch.nn.functional as F
+    expand = window > 0 or q.dtype != torch.bfloat16
+    rep = q.shape[2] // k.shape[2]
+    if expand:
+        k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    if window > 0:
+        mask = window_mask(torch, q.shape[1], window, q.device)
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        name = f"scaled_dot_product_attention(attn_mask=<causal window {window}>)"
+    else:
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=not expand)
+        name = f"scaled_dot_product_attention(is_causal=True, enable_gqa={not expand})"
+    fwd_bwd = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    f_ms = device_ms(fwd, BWD_TIMING_REPS)
+    fb_ms = device_ms(fwd_bwd, BWD_TIMING_REPS)
+    return {"call": "torch.nn.functional." + name + (", KV heads expanded" if expand else "")
+                    + ": forward + backward under autograd, less the forward",
+            "forward_ms": f_ms, "forward_backward_ms": fb_ms, "library_ms": fb_ms - f_ms}
+
+
+def train_kernel_checks(torch, dev) -> dict:
+    """Phase train, part 1: the backward kernels against their plain version
+    (BWD_SMALL_CASES and BWD_PATH_SHAPES, float32 and bf16), two launches
+    bit for bit, and at the path shapes the kernel's time, the plain
+    version's, the bound and SDPA's backward. Launches made here are not a
+    path's."""
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED + 22)
+    cases = ([(shape, w, cap, None) for shape, w, cap in BWD_SMALL_CASES]
+             + [(shape, w, cap, label) for label, (shape, w, cap) in BWD_PATH_SHAPES.items()])
+    small, path = {"float32": [], "bfloat16": []}, {}
+    for shape, window, cap, label in cases:
+        B, S, H, G, hd = shape
+        master = [torch.randn(s, generator=gen, device=dev)
+                  for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd), (B, S, H, hd))]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = (t.to(dtype) for t in master)
+            o = ops.flash_attention(q, k, v, window=window, softcap=cap)
+            run = lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
+            plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                                        softcap=cap)
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            want = plain()
+            f32 = want if dtype == torch.float32 else ref.flash_attention_bwd_ref(
+                *(t.float() for t in (q, k, v, o, do)), window=window, softcap=cap)
+            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap,
+                   "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+                   **bwd_errors(got, want, f32)}
+            del got, again, want, f32
+            row["max_err_over_bar"] = max(bwd_bar(name, row[g]) for g in ("dq", "dk", "dv"))
+            check(row["bitwise_repeat"], f"flash backward {name} {shape}: two launches differ")
+            check(row["max_err_over_bar"] <= 1.0,
+                  f"flash backward {name} {shape} window={window} softcap={cap}: {row}")
+            if label is None:
+                small[name].append(row)
+                continue
+            t_b, by = flash_bwd_bound(B, S, H, G, hd, window, q.element_size(),
+                                      BF16_OPS_PER_S if dtype == torch.bfloat16
+                                      else FP32_OPS_PER_S)
+            row.update({"dtype": name, "ms": device_ms(run, BWD_TIMING_REPS),
+                        "plain_ms": device_ms(plain, BWD_TIMING_REPS),
+                        "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(S, window)})
+            if cap is not None:  # the kernel on the library call's function
+                o_nc = ops.flash_attention(q, k, v, window=window)
+                row["kernel_without_softcap_ms"] = device_ms(
+                    lambda: ops.flash_attention_bwd(q, k, v, o_nc, do, window=window),
+                    BWD_TIMING_REPS)
+                del o_nc
+            row["library"] = sdpa_bwd_yardstick(torch, q, k, v, do, window)
+            row["library_ms"] = row["library"]["library_ms"]
+            path[f"{label}_{name}"] = row
+            del q, k, v, do, o
+            torch.cuda.empty_cache()
+        del master
+        torch.cuda.empty_cache()
+    return {"phase": "train", "part": "kernels", "phase_s": time.perf_counter() - t_phase,
+            "small": small, "path": path,
+            "bars": {"float32_rtol_of_max": BWD_F32_RTOL_OF_MAX,
+                     "bf16": f"|kernel - f32 plain| <= {BWD_BF16_PLAIN_FACTOR} |bf16 plain - "
+                             f"f32 plain| + {BWD_BF16_RTOL_OF_MAX} max|f32 plain|"},
+            "timing": f"device time, median of {BWD_TIMING_REPS} calls between CUDA events"}
+
+
+@contextlib.contextmanager
+def plain_attention_pair(ops, ref):
+    """The plain attention and its plain gradient in the kernels' places
+    (``models.attention`` reaches both through ``kernels.ops``)."""
+    real = ops.flash_attention, ops.flash_attention_bwd
+    ops.flash_attention = lambda q, k, v, *, window=None, softcap=None: \
+        ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    ops.flash_attention_bwd = lambda q, k, v, o, do, *, window=None, softcap=None: \
+        ref.flash_attention_bwd_ref(q, k, v, o, do, window=window, softcap=softcap)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_attention_bwd = real
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """{key path: tensor} of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {n: t for k in sorted(tree) for n, t in named_leaves(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, list):
+        return {n: t for i, x in enumerate(tree) for n, t in named_leaves(x, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def train_slice_check(torch, dev) -> dict:
+    """Phase train, part 2: stablelm-3b at full width, TRAIN_SLICE_LAYERS
+    layers, one loss and backward through the kernels against the same
+    through the plain attention pair, in float32 and in bf16."""
+    from repro_torch.configs import base as configs
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.train_step import value_and_grad
+
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=TRAIN_SLICE_LAYERS)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32", compute_dtype="float32")
+    batch = batch_at(DataConfig(vocab=cfg16.vocab, global_batch=1, seq_len=TRAIN_SLICE_TOKENS),
+                     0, dev)
+
+    def run(params, cfg, plain: bool):
+        with plain_attention_pair(ops, ref) if plain else contextlib.nullcontext():
+            loss, grads = value_and_grad(params, cfg, batch)
+        return float(loss), named_leaves(grads)
+
+    params = M.init_params(cfg32, LM_SEED, dev)
+    loss_k, g_k = run(params, cfg32, False)
+    loss_p, g_p = run(params, cfg32, True)
+    err = {n: float((g_k[n] - g_p[n]).abs().max()) / max(float(g_p[n].abs().max()), 1e-30)
+           for n in g_p}
+    attn_grads = {n: float(g_k[n].abs().max()) for n in g_k
+                  if n.split("/")[-1] in ("wq", "wk", "wv")}
+    f32 = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "worst_leaf": max(err, key=err.get), "worst_grad_err_of_max": max(err.values()),
+           "attn_qkv_grad_max_abs": attn_grads}
+    del g_k, g_p
+    # bf16: the same parameters rounded, against the float32 plain gradient
+    # of the rounded values
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    loss16_k, g16_k = run(p16, cfg16, False)
+    loss16_p, g16_p = run(p16, cfg16, True)
+    loss_up, g_up = run(tree_map(lambda t: t.float(), p16), cfg32, True)
+    over = {}
+    for n, w in g_up.items():
+        mx = float(w.abs().max())
+        d_k = float((g16_k[n].float() - w).abs().max())
+        d_p = float((g16_p[n].float() - w).abs().max())
+        over[n] = d_k / (BWD_BF16_PLAIN_FACTOR * d_p + BWD_BF16_RTOL_OF_MAX * mx)
+    bf16 = {"loss_kernels": loss16_k, "loss_plain": loss16_p, "loss_f32_plain": loss_up,
+            "worst_leaf": max(over, key=over.get), "max_err_over_bar": max(over.values()),
+            "attn_qkv_grad_max_abs": {n: float(g16_k[n].float().abs().max()) for n in g16_k
+                                      if n.split("/")[-1] in ("wq", "wk", "wv")}}
+    del g16_k, g16_p, g_up, p16
+    torch.cuda.empty_cache()
+    line = {"phase": "train", "part": "slice", "arch": TRAIN_ARCH, "layers": TRAIN_SLICE_LAYERS,
+            "tokens": TRAIN_SLICE_TOKENS, "float32": f32, "bf16": bf16,
+            "bars": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol_of_max": TRAIN_GRAD_RTOL_OF_MAX,
+                     "bf16": "per leaf, as the kernel's bf16 bar"},
+            "phase_s": time.perf_counter() - t0}
+    emit(line)
+    check(f32["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"train slice float32 loss: {f32}")
+    check(f32["worst_grad_err_of_max"] <= TRAIN_GRAD_RTOL_OF_MAX,
+          f"train slice float32 gradient: {f32['worst_leaf']} {f32['worst_grad_err_of_max']}")
+    check(bf16["max_err_over_bar"] <= 1.0,
+          f"train slice bf16 gradient: {bf16['worst_leaf']} {bf16['max_err_over_bar']}")
+    for part in (f32, bf16):
+        check(len(part["attn_qkv_grad_max_abs"]) == 3 * TRAIN_SLICE_LAYERS
+              and all(0 < g < float("inf") for g in part["attn_qkv_grad_max_abs"].values()),
+              f"train slice: wq, wk or wv got no gradient: {part['attn_qkv_grad_max_abs']}")
+    return line
+
+
+def train_step_profile(torch, fn) -> dict:
+    """Run one train step ``fn`` under torch.profiler: its wall time, the
+    device time of its kernels, the card's idle share, and the device time
+    and share of the flash kernels (forward, and the three backward
+    kernels, whose names hold "flash_bwd")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy = sum(t for t, _, _ in kernels)
+    bwd = sum(t for t, _, key in kernels if "flash_bwd" in key)
+    fwd = sum(t for t, _, key in kernels if "flash_attention_" in key and "kernel" in key)
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us if busy else None,
+            "flash_bwd_ms": bwd / 1e3, "flash_bwd_share_of_step": bwd / wall_us,
+            "flash_bwd_share_of_device": bwd / busy if busy else None,
+            "flash_fwd_ms": fwd / 1e3,
+            "top_kernels_ms": [(k[:60], n, t / 1e3) for t, n, k in kernels[:8]]}
+
+
+def train_full(torch, dev) -> dict:
+    """Phase train, part 3: stablelm-3b at full width and depth in bf16,
+    trained through launch/train.py's ``build`` and the Trainer:
+    TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens, then one more step under the profiler."""
+    from repro_torch.configs import base as configs
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    published = configs.get(TRAIN_ARCH)
+    counts = lambda: (fa.flash_attention.kernel_launches["bf16"], fa.flash_attention_bwd.launches,
+                      fa.flash_attention_bwd.kernel_launches["bf16"])
+    with tempfile.TemporaryDirectory(prefix="repro-torch-train-") as ckpt_dir:
+        args = train_cli.parser().parse_args(
+            ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+             "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir, "--ckpt-every", str(steps + 1)])
+        cfg, opt, data, tc = train_cli.build(args)
+        check(cfg == published, f"the CLI's config is not {TRAIN_ARCH}'s: {cfg}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, opt, data, tc, device=args.device)
+        rows, last = [], [counts()]
+
+        def on_step(step, loss, dt, slow):
+            now = counts()
+            rows.append({"step": step, "loss": loss, "ms": dt * 1e3,
+                         "fwd_launches": now[0] - last[0][0], "bwd_calls": now[1] - last[0][1],
+                         "bwd_kernel_launches": now[2] - last[0][2]})
+            last[0] = now
+
+        t0 = time.perf_counter()
+        out = trainer.run(hooks={"on_step": on_step})
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        written = sorted(os.listdir(ckpt_dir))
+        state = out["state"]
+        n_params = sum(t.numel() for t in _leaves(state["params"]))
+        batch = batch_at(data, steps, trainer.device)
+        profile_ = train_step_profile(
+            torch, lambda: trainer.step_fn(state["params"], state["opt"], batch))
+        del out, state, batch, trainer
+    torch.cuda.empty_cache()
+    timed = [r["ms"] for r in rows[TRAIN_WARMUP_STEPS:]]
+    ms = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    line = {"phase": "train", "part": "full", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv, cfg.hd],
+            "params": n_params, "dtype": cfg.param_dtype, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "lr": opt.lr, "warmup_steps": opt.warmup_steps,
+            "remat": [cfg.remat, cfg.remat_policy], "steps": rows,
+            "ms_per_step": ms, "ms_per_step_timed": timed, "tokens_per_s": tokens / (ms / 1e3),
+            "peak_memory_gb": peak / 1e9, "checkpoints_written": written,
+            "profile": profile_, "run_s": run_s, "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    check(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
+          f"train full: losses {[r['loss'] for r in rows]}")
+    layers = published.n_layers
+    for r in rows:
+        check(r["fwd_launches"] == 2 * layers and r["bwd_calls"] == layers
+              and r["bwd_kernel_launches"] == layers * len(fa.BWD_KERNELS),
+              f"train full: step {r['step']} launched {r}")
+    check(peak < TRAIN_PEAK_BYTES, f"train full: peak memory {peak / 1e9:.1f} GB")
+    check(not written, f"train full: checkpoints written: {written}")
+    check(n_params == sum(t.numel() for t in _leaves(M.param_shapes(published))),
+          f"train full: {n_params} parameters trained")
+    return line
+
+
+def train_reduced_check(torch, dev) -> dict:
+    """Phase train, part 4: every family's reduced config, one loss and
+    gradient on the card against the same on the CPU; the Trainer's
+    restart on the card, bit for bit; 25 steps with compressed gradients."""
+    from repro_torch.configs import base as configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    archs = {}
+    B, S = TRAIN_REDUCED_TOKENS
+    for arch in TRAIN_REDUCED_ARCHS:
+        cfg = configs.reduced(configs.get(arch))
+        params_cpu = M.init_params(cfg, LM_SEED, "cpu")
+        rng = np.random.default_rng(np.random.SeedSequence(
+            LM_SEED, spawn_key=(200,) + tuple(arch.encode())))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1)))
+        batch_cpu = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "vlm":
+            batch_cpu["patch_embeds"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.n_patches, M.PATCH_DIM), dtype=np.float32))
+        loss_c, g_c = value_and_grad(params_cpu, cfg, batch_cpu)
+        loss_g, g_g = value_and_grad(to_device(params_cpu, dev), cfg, to_device(batch_cpu, dev))
+        g_c, g_g = named_leaves(g_c), named_leaves(g_g)
+        err = {n: float((g_g[n].cpu() - g_c[n]).abs().max()) / max(float(g_c[n].abs().max()),
+                                                                     1e-30) for n in g_c}
+        archs[arch] = {"loss_card": float(loss_g), "loss_cpu": float(loss_c),
+                       "loss_rel_err": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+                       "worst_leaf": max(err, key=err.get), "worst_grad_err_of_max": max(err.values())}
+    # the Trainer's restart on the card (tests/test_substrate.py:92's twin)
+    cfg = configs.reduced(configs.get(TRAIN_ARCH))
+    data = DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=S, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    with tempfile.TemporaryDirectory(prefix="repro-torch-restart-") as d:
+        tc = lambda name: TrainConfig(steps=TRAIN_RESTART_STEPS, ckpt_dir=os.path.join(d, name),
+                                      ckpt_every=TRAIN_RESTART_EVERY)
+        uninterrupted = Trainer(cfg, opt, data, tc("ref"), device=dev).run()
+        failed = None
+        try:
+            Trainer(cfg, opt, data, tc("ft"), device=dev).run(
+                hooks={"inject_failure": lambda s: s == TRAIN_RESTART_FAIL_AT})
+        except RuntimeError as e:
+            failed = str(e)
+        resumed = Trainer(cfg, opt, data, tc("ft"), device=dev).run()
+    restart = {"injected": failed, "resumed_steps": len(resumed["losses"]),
+               "losses_equal": resumed["losses"][-3:] == uninterrupted["losses"][-3:],
+               "state_equal": all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(uninterrupted["state"]), tree_leaves(resumed["state"]))),
+               "losses": uninterrupted["losses"]}
+    # compressed gradients (tests/test_substrate.py:143's twin)
+    with tempfile.TemporaryDirectory(prefix="repro-torch-compress-") as d:
+        comp = Trainer(cfg, AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=40),
+                       DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16, seed=0),
+                       TrainConfig(steps=TRAIN_COMPRESS_STEPS, ckpt_dir=d, ckpt_every=100,
+                                   compress_grads=True), device=dev).run()
+    compress = {"first5_mean": float(np.mean(comp["losses"][:5])),
+                "last5_mean": float(np.mean(comp["losses"][-5:]))}
+    line = {"phase": "train", "part": "reduced", "tokens": [B, S], "archs": archs,
+            "restart": restart, "compress": compress, "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    for arch, r in archs.items():
+        check(r["loss_rel_err"] <= TRAIN_LOSS_RTOL
+              and r["worst_grad_err_of_max"] <= TRAIN_GRAD_RTOL_OF_MAX,
+              f"train reduced {arch}: card vs CPU {r}")
+    check(failed is not None and "injected failure" in failed,
+          f"train restart: the injected failure did not stop the run: {failed}")
+    check(restart["resumed_steps"] == TRAIN_RESTART_STEPS - TRAIN_RESTART_EVERY
+          and restart["losses_equal"] and restart["state_equal"],
+          f"train restart on the card is not bit for bit: {restart}")
+    check(compress["last5_mean"] < compress["first5_mean"],
+          f"train with compressed gradients did not converge: {compress}")
+    return line
+
+
 def unpack_events(blob: str, shape) -> np.ndarray:
     """A (T, L) bool record from packed bits, zlib, base64."""
     bits = np.frombuffer(zlib.decompress(base64.b64decode(blob)), np.uint8)
@@ -2929,8 +3441,12 @@ def smoke(torch) -> dict:
     # spill at hd 128, the path's
     flash_build = flash_f32_build(ptxas_by_kernel(
         build.library_path("flash_attention.cu").with_suffix(".log").read_text()))
+    # the flash backward kernels: registers and spills by instantiation (no bar)
+    flash_bwd_build = flash_bwd_kernels(ptxas_by_kernel(
+        build.library_path("flash_attention_bwd.cu").with_suffix(".log").read_text()))
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
-          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build})
+          "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build,
+          "flash_bwd_kernels": flash_bwd_build})
     check(sorted(flash_build) == sorted(autotune.FLASH_HEAD_DIMS),
           f"float32 flash instantiations built: {sorted(flash_build)}")
     check(flash_build[128]["stack_bytes"] == flash_build[128]["spill_store_bytes"]
@@ -3335,9 +3851,12 @@ def smoke(torch) -> dict:
     # one count per CUDA kernel; both flash kernels sit behind one wrapper,
     # which counts each under its dtype
     names = ("oga_step_fused", "proj_sortscan", "proj_bisect", "flash_attention_bf16",
-             "flash_attention_f32")
+             "flash_attention_f32", "flash_attention_bwd_bf16", "flash_attention_bwd_f32")
     wrappers = (og_kernel.oga_step_fused, ss_kernel.proj_sortscan, pb_kernel.proj_bisect)
     flash_counts = fa_kernel.flash_attention.kernel_launches
+    # the backward wrapper counts its calls and, by dtype, the kernels they
+    # launch (three a call)
+    bwd_counts = fa_kernel.flash_attention_bwd.kernel_launches
 
     def zero_launches():
         for w in wrappers:
@@ -3345,12 +3864,15 @@ def smoke(torch) -> dict:
         for w in wrappers[:2]:
             w.launches_by_shape.clear()
         fa_kernel.flash_attention.launches = 0
-        for key in flash_counts:
-            flash_counts[key] = 0
+        fa_kernel.flash_attention_bwd.launches = 0
+        for counts_ in (flash_counts, bwd_counts):
+            for key in counts_:
+                counts_[key] = 0
 
     def launches():
-        return tuple(w.launches for w in wrappers) + (flash_counts["bf16"],
-                                                      flash_counts["float32"])
+        return tuple(w.launches for w in wrappers) + (
+            flash_counts["bf16"], flash_counts["float32"], bwd_counts["bf16"],
+            bwd_counts["float32"])
 
     zero_launches()
     t0 = time.perf_counter()
@@ -3644,12 +4166,28 @@ def smoke(torch) -> dict:
     families = lm_families_phase(torch, dev)
     emit(families)
     serve_counts = launches()
-    for name, n in zip(names[3:], serve_counts[3:]):
+    for name, n in zip(names[3:5], serve_counts[3:5]):
         check(n > 0, f"{name} was not launched on the serve path")
+
+    # ----------------------------------------------------------- train path
+    # the backward kernels against their plain version first (launches that
+    # compare are not the path's), then the path: the slice at full width,
+    # stablelm-3b trained at full width and depth, the reduced configs
+    torch.cuda.empty_cache()
+    train_kernels = train_kernel_checks(torch, dev)
+    emit(train_kernels)
+    zero_launches()
+    train_slice_check(torch, dev)
+    train_full_line = train_full(torch, dev)
+    train_reduced_check(torch, dev)
+    train_counts = launches()
+    for name, n in zip(names[3:], train_counts[3:]):
+        check(n > 0, f"{name} was not launched on the train path")
 
     # ---------------------------------------------------------- kernel line
     paths = {"autotune": tune_launches, "main": counts, "lifecycle": lifecycle_counts,
-             "stream": stream_counts, "extensions": ext_counts, "serve": serve_counts}
+             "stream": stream_counts, "extensions": ext_counts, "serve": serve_counts,
+             "train": train_counts}
     emit({"phase": "paths", "autotune_cache": stats, "stream_autotune_cache": stream_stats,
           "launches": {p: dict(zip(names, c)) for p, c in paths.items()},
           "main_launches_by_shape": main_by_shape,
@@ -3759,6 +4297,34 @@ def smoke(torch) -> dict:
                         "library_vs_kernel_without_softcap_ms":
                             flash["library_f32"]["window4096"]["kernel_ms"]}},
     ]
+    bwd_path = train_kernels["path"]
+    for i, (name, dtype) in enumerate((("flash_attention_bwd_bf16", "bfloat16"),
+                                       ("flash_attention_bwd_f32", "float32")), start=5):
+        main = bwd_path[f"{TRAIN_ARCH}_{dtype}"]
+        rows = train_kernels["small"][dtype] + [r for r in bwd_path.values()
+                                                if r["dtype"] == dtype]
+        kernels.append({
+            "name": name, "kernel": ", ".join(fa_kernel.BWD_KERNELS),
+            "route": "cuda", "source": csrc + "flash_attention_bwd.cu", "replaces": None,
+            "note": "no Pallas counterpart: the gradient of the function of "
+                    "src/repro/kernels/flash_attention.py:64, which the reference takes by "
+                    "autodiff of its jnp attention",
+            "launches": sum(by_path(i).values()), "launches_by_path": by_path(i),
+            "launches_per_call": len(fa_kernel.BWD_KERNELS),
+            "max_abs_err": max(r[g]["kernel_vs_plain"] for r in rows for g in ("dq", "dk", "dv")),
+            "max_err_over_bar": max(r["max_err_over_bar"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["B_S_H_G_hd"],
+            "gemma2_27b_shapes": {label: {k: r[k] for k in (
+                "B_S_H_G_hd", "window", "softcap", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "kernel_without_softcap_ms")}
+                for label, r in bwd_path.items()
+                if label.startswith("gemma2") and r["dtype"] == dtype}})
+    kernels[5]["train_step"] = {k: train_full_line[k] for k in (
+        "ms_per_step", "tokens_per_s", "peak_memory_gb")}
+    kernels[5]["train_step"]["flash_bwd_share_of_step"] = \
+        train_full_line["profile"]["flash_bwd_share_of_step"]
     emit({"kernels": kernels})
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}

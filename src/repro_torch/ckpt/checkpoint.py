@@ -78,7 +78,11 @@ def _unflatten(like: Any, leaves):
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    """A leaf as a host array; a bf16 tensor (numpy has no bf16) as float32,
+    which holds every bf16 value exactly and is cast back on restore."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

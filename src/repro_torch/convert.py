@@ -4,7 +4,8 @@ A test feeds both packages the same cluster spec, arrivals and initial
 decision: it builds them once as numpy arrays (or reads the reference's
 ``ClusterSpec`` through ``np.asarray``) and hands them to the port here;
 likewise a job lifecycle's mid-trace state (``lifecycle_state_from_reference``)
-and an LM's parameters (``params_from_reference``). Nothing in this
+an LM's parameters (``params_from_reference``) and its optimizer state
+(``opt_state_from_reference``). Nothing in this
 module imports JAX.
 """
 from __future__ import annotations
@@ -76,6 +77,19 @@ def params_from_reference(cfg, params_np, device: DeviceLike = None) -> dict:
     out["blocks"] = [_tree(stacked, lambda a, i=i: _leaf_tensor(a[i], dev))
                      for i in range(cfg.n_layers)]
     return out
+
+
+def opt_state_from_reference(cfg, opt_state_np, device: DeviceLike = None) -> dict:
+    """The port's AdamW state from the reference's ({"m", "v", "step"}, as
+    numpy arrays or anything ``np.asarray`` reads): ``m`` and ``v``
+    unstacked like the parameters (``params_from_reference``), each leaf
+    in its own dtype, and ``step`` a 0-d int32 tensor, so both packages'
+    optimizers can step identical state."""
+    dev = resolve_device(device)
+    return {"m": params_from_reference(cfg, opt_state_np["m"], dev),
+            "v": params_from_reference(cfg, opt_state_np["v"], dev),
+            "step": torch.tensor(int(np.asarray(opt_state_np["step"])), dtype=torch.int32,
+                                 device=dev)}
 
 
 def lifecycle_state_from_reference(obj, device: DeviceLike = None):

@@ -97,6 +97,12 @@ FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 FLASH_TC_BLOCK_Q = 128
 FLASH_TC_BLOCK_K = 128
 FLASH_TC_STAGES = 2
+# The flash backward (csrc/flash_attention_bwd.cu, both dtypes): query rows
+# and keys per tile and threads per block (a 16 x 16 grid of 4 x 4 score
+# microtiles). Fixed; its C entry refuses others.
+FLASH_BWD_BLOCK_Q = 64
+FLASH_BWD_BLOCK_K = 64
+FLASH_BWD_THREADS = 256
 # warm-up launches before a candidate is timed, and timed launches
 WARMUP_CALLS = 3
 TUNE_REPEATS = 10

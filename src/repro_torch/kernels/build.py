@@ -26,7 +26,7 @@ from pathlib import Path
 from repro_torch.device import nvcc_path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("oga_step.cu", "proj_bisect.cu", "flash_attention.cu")
+SOURCES = ("oga_step.cu", "proj_bisect.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

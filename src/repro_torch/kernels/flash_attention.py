@@ -1,6 +1,9 @@
 """Causal GQA flash attention with a sliding window and a logit softcap.
 
-Counterpart of ``repro.kernels.flash_attention``. ``flash_attention`` is
+Counterpart of ``repro.kernels.flash_attention``, and of its gradient,
+which the reference takes by autodiff of jnp: ``flash_attention_bwd``
+wraps the three backward kernels of ``csrc/flash_attention_bwd.cu``
+(plain version ``ref.flash_attention_bwd_ref``). ``flash_attention`` is
 the wrapper of two CUDA kernels in ``csrc/flash_attention.cu``: bf16
 tensors launch the tensor-core kernel ``flash_attention_wgmma_kernel``,
 float32 tensors the FFMA kernel ``flash_attention_f32_kernel``; CPU
@@ -81,8 +84,9 @@ def tma_strides(shape: Sequence[int], strides: Sequence[int]) -> tuple:
                  for i, (n, st) in enumerate(zip(shape[:3], strides[:3])))
 
 
-def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take."""
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tma: bool = True) -> None:
+    """Raise on anything the kernels do not take; ``tma`` False leaves out
+    the TMA checks (the backward kernels read with plain loads)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, hd)")
     B, S, H, hd = q.shape
@@ -103,7 +107,7 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim is not contiguous")
-        if t.device.type == "cuda" and (t.dtype == torch.bfloat16 or name != "q"):
+        if tma and t.device.type == "cuda" and (t.dtype == torch.bfloat16 or name != "q"):
             why = tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr())
             if why is not None:
                 raise ValueError(f"{name}: the {t.dtype} kernel cannot read it: {why}")
@@ -176,3 +180,62 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
 _KERNEL_OF = {torch.bfloat16: "bf16", torch.float32: "float32"}
 flash_attention.launches = 0
 flash_attention.kernel_launches = {"bf16": 0, "float32": 0}
+
+# CUDA kernels one backward call launches: row statistics, dK and dV, dQ
+BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10                       # q k v o do dq dk dv lse dsum
+                 + (ctypes.c_int,) * 9                          # B S H G hd bf16 tiles
+                 + (ctypes.POINTER(ctypes.c_longlong),)         # 24 strides
+                 + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
+                 + (ctypes.c_void_p,))                          # stream
+
+
+def flash_attention_bwd(q, k, v, o, do, *, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """The gradient of ``flash_attention``: (dq, dk, dv) for q (B, S, H,
+    hd), k, v (B, S, G, hd), the forward's output ``o`` and the gradient
+    ``do`` of the loss in it (both like q), each gradient in its input's
+    dtype. Takes what the forward takes (dtype, head dim, GQA), with no
+    TMA alignment rule: the backward kernels read with plain loads.
+
+    CUDA tensors: one call of ``csrc/flash_attention_bwd.cu``'s C entry,
+    which launches the three ``BWD_KERNELS`` in order (float32 scratch for
+    each row's log-sum-exp and D), counted in
+    ``flash_attention_bwd.launches`` and under the dtype's name in
+    ``flash_attention_bwd.kernel_launches``. CPU tensors:
+    ``ref.flash_attention_bwd_ref``.
+    """
+    _check_inputs(q, k, v, tma=False)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not match "
+                             f"q {tuple(q.shape)} {q.dtype} on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim is not contiguous")
+    w = int(window) if window is not None and int(window) > 0 else 0
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, window=w or None, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
+    fn = _launch.c_entry("flash_attention_bwd.cu", "repro_flash_attention_bwd", _BWD_ARGTYPES)
+    _launch.call(fn, q.device, *(t.data_ptr() for t in tensors), lse.data_ptr(),
+                 dsum.data_ptr(), B, S, H, G, hd, int(q.dtype == torch.bfloat16),
+                 autotune.FLASH_BWD_BLOCK_Q, autotune.FLASH_BWD_BLOCK_K,
+                 autotune.FLASH_BWD_THREADS, strides, w, hd ** -0.5,
+                 0.0 if softcap is None else float(softcap))
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.kernel_launches[_KERNEL_OF[q.dtype]] += len(BWD_KERNELS)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.kernel_launches = {"bf16": 0, "float32": 0}

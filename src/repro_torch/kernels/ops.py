@@ -8,7 +8,8 @@ round trip is exact. ``backend="fused"`` runs the fused OGA step
 plain version on the CPU), its row block resolved from ``kernels.autotune``
 on CUDA tensors and never on the CPU; ``backend="reference"`` runs
 gradient, ascent and projection as separate spec-level torch passes.
-``flash_attention`` dispatches causal attention to its kernel's wrapper.
+``flash_attention`` and ``flash_attention_bwd`` dispatch causal attention
+and its gradient to their kernels' wrappers.
 """
 from __future__ import annotations
 
@@ -219,3 +220,10 @@ def flash_attention(q, k, v, *, window=None, softcap=None):
     """Causal GQA attention: the CUDA kernel on CUDA tensors, its plain
     version on CPU tensors (``kernels.flash_attention``)."""
     return _fa.flash_attention(q, k, v, window=window, softcap=softcap)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, window=None, softcap=None):
+    """The gradient (dq, dk, dv) of ``flash_attention``: the three backward
+    kernels on CUDA tensors, their plain version on CPU tensors
+    (``kernels.flash_attention.flash_attention_bwd``)."""
+    return _fa.flash_attention_bwd(q, k, v, o, do, window=window, softcap=softcap)

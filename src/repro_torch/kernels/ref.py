@@ -118,36 +118,104 @@ def oga_step_ref(y, a, mask, x, kstar, scal, proj: str = "sorted",
 ATTN_MASKED = -1e30
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain attention computes in: float64 for float64 inputs
+    (``torch.autograd.gradcheck``), float32 for every other."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _visible(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
+    """(n, S) keys a query sees: kpos <= qpos and, for window > 0,
+    qpos - kpos < window."""
+    m = kpos[None, :] <= qpos[:, None]
+    if window is not None and window > 0:
+        m &= (qpos[:, None] - kpos[None, :]) < window
+    return m
+
+
 def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 256):
     """Causal GQA attention, blockwise over query blocks (the port of
     ``repro.models.attention.attention``, the flash kernel's oracle).
 
-    q: (B, S, H, hd); k, v: (B, S, G, hd), H = G * rep. Scores in float32,
-    scaled by hd^-0.5, softcapped, then the causal mask and, when
-    ``window`` > 0, the window (qpos - kpos) < window, with masked scores at
-    -1e30; softmax over all S keys; the output in q's dtype. Only a
-    (q_block, S) score tile per head is alive at once. A ragged last block
-    (S not a multiple of ``q_block``) is taken as it is.
+    q: (B, S, H, hd); k, v: (B, S, G, hd), H = G * rep. Scores in float32
+    (float64 for float64 inputs), scaled by hd^-0.5, softcapped, then the
+    causal mask and, when ``window`` > 0, the window (qpos - kpos) <
+    window, with masked scores at -1e30; softmax over all S keys; the
+    output in q's dtype. Only a (q_block, S) score tile per head is alive at
+    once. A ragged last block (S not a multiple of ``q_block``) is taken as
+    it is.
     """
     B, S, H, hd = q.shape
     G = k.shape[2]
     rep = H // G
     bq = min(q_block, S)
     scale = hd ** -0.5
-    kf, vf = k.float(), v.float()
+    acc = _acc_dtype(q.dtype)
+    kf, vf = k.to(acc), v.to(acc)
     kpos = torch.arange(S, device=q.device)
     out = torch.empty_like(q)
     for q0 in range(0, S, bq):
-        qi = q[:, q0:q0 + bq].float()
+        qi = q[:, q0:q0 + bq].to(acc)
         n = qi.shape[1]
         qpos = q0 + torch.arange(n, device=q.device)
         s = torch.einsum("bqgrd,bkgd->bgrqk", qi.reshape(B, n, G, rep, hd), kf) * scale
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
-        m = kpos[None, :] <= qpos[:, None]
-        if window is not None and window > 0:
-            m &= (qpos[:, None] - kpos[None, :]) < window
-        p = torch.softmax(s.masked_fill(~m, ATTN_MASKED), dim=-1)
+        p = torch.softmax(s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED), dim=-1)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
         out[:, q0:q0 + n] = o.reshape(B, n, H, hd).to(q.dtype)
     return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, window=None, softcap=None,
+                            q_block: int = 256):
+    """The gradient of ``flash_attention_ref``: (dq, dk, dv) of the loss
+    whose gradient in the output ``o`` is ``do`` (the plain version of the
+    backward kernels in ``csrc/flash_attention_bwd.cu``).
+
+    Blockwise over query blocks, step by step the formulas the kernels
+    implement, in float32 (float64 for float64 inputs): the row statistics
+    (each row's max and log-sum-exp over its visible keys, recomputed from
+    q and k); D = rowsum(do * o); P = exp(s_c - lse) (masked scores at
+    -1e30, so P is exactly 0 there); dV = P^T dO; dP = dO V^T; dS = P (dP -
+    D), times the softcap's derivative 1 - (s_c / c)^2; dQ = dS K hd^-0.5
+    and dK = dS^T Q hd^-0.5, dK and dV summed over the rep query heads of
+    each KV head. Each gradient comes back in its input's dtype.
+    """
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    rep = H // G
+    bq = min(q_block, S)
+    scale = hd ** -0.5
+    acc = _acc_dtype(q.dtype)
+    kf, vf = k.to(acc), v.to(acc)
+    kpos = torch.arange(S, device=q.device)
+    dq = torch.empty(q.shape, dtype=acc, device=q.device)
+    dk = torch.zeros(k.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(v.shape, dtype=acc, device=q.device)
+    for q0 in range(0, S, bq):
+        qi = q[:, q0:q0 + bq].to(acc)
+        n = qi.shape[1]
+        qi = qi.reshape(B, n, G, rep, hd)
+        oi = o[:, q0:q0 + n].to(acc).reshape(B, n, G, rep, hd)
+        doi = do[:, q0:q0 + n].to(acc).reshape(B, n, G, rep, hd)
+        qpos = q0 + torch.arange(n, device=q.device)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qi, kf) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        s = s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED)
+        # the row statistics: max and log-sum-exp over the visible keys
+        mx = s.amax(-1, keepdim=True)
+        lse = mx + torch.log(torch.exp(s - mx).sum(-1, keepdim=True))
+        p = torch.exp(s - lse)
+        d_row = (doi * oi).sum(-1).permute(0, 2, 3, 1)[..., None]    # (B, G, rep, n, 1)
+        dv += torch.einsum("bgrqk,bqgrd->bkgd", p, doi)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", doi, vf)
+        ds = p * (dp - d_row)
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        dq[:, q0:q0 + n] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale).reshape(
+            B, n, H, hd)
+        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qi) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

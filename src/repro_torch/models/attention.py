@@ -1,12 +1,19 @@
-"""Causal GQA attention for prefill, and one-token decode over a KV cache.
+"""Causal GQA attention for prefill and training, and one-token decode over
+a KV cache.
 
 Counterpart of ``repro.models.attention``. ``attention`` is always causal
 and takes a per-layer ``window`` (<= 0 or None: global) and a logit
 softcap; on a CUDA tensor it runs the hand-written flash kernel
 (``kernels.ops.flash_attention``), on a CPU tensor the plain blockwise
 version (``kernels.ref.flash_attention_ref``), which computes the same
-function. ``decode_attention`` is plain torch on either device, as the
-reference's is jnp outside any kernel.
+function. Where a gradient is wanted (grad mode on and an input that
+requires one) it runs ``FlashAttention``, whose backward is the
+hand-written backward kernels on the card (``ops.flash_attention_bwd``)
+and their plain version on the CPU (``ref.flash_attention_bwd_ref``): the
+reference takes that gradient by autodiff of its jnp attention. On a CUDA
+tensor neither pass falls back to torch ops. ``decode_attention`` is
+plain torch on either device, as the reference's is jnp outside any
+kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +26,38 @@ from repro_torch.kernels import ref
 from repro_torch.models.layers import softcap
 
 
+def _forward(q, k, v, window, attn_softcap):
+    if q.device.type == "cuda":
+        return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap)
+    return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention with its gradient: forward as ``attention``;
+    backward (dq, dk, dv) from q, k, v and the saved output o, by the
+    backward kernels on a CUDA tensor and ``ref.flash_attention_bwd_ref``
+    on a CPU tensor (which takes float64 too, for ``gradcheck``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, attn_softcap):
+        o = _forward(q, k, v, window, attn_softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.window, ctx.attn_softcap = window, attn_softcap
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        w, cap = ctx.window, ctx.attn_softcap
+        if q.device.type == "cuda":
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do.contiguous(), window=w,
+                                                 softcap=cap)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do, window=w, softcap=cap)
+        return dq, dk, dv, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: Optional[int] = None,
               attn_softcap: Optional[float] = None) -> torch.Tensor:
@@ -28,11 +67,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wrapper refuses on every device what the kernels do not take (head
     dims outside ``autotune.FLASH_HEAD_DIMS``, the multiples of 16 from 16
     to 128: every config's, the reduced configs' 16 among them), and the
-    plain version takes any.
+    plain version takes any. Without a gradient to take, only the forward
+    runs, as in serving.
     """
-    if q.device.type == "cuda":
-        return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap)
-    return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, window, attn_softcap)
+    return _forward(q, k, v, window, attn_softcap)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -26,13 +26,18 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def he_init(gen: torch.Generator, shape, fan_in: int, dtype) -> torch.Tensor:
-    """N(0, 2 / fan_in) drawn in float32 on ``gen``'s device, cast to dtype."""
+    """N(0, 2 / fan_in) drawn in float32 on ``gen``'s device, cast to dtype
+    (on the meta device: a shape only, nothing drawn)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = (2.0 / max(fan_in, 1)) ** 0.5
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return x.mul_(0.02).to(dtype)
 

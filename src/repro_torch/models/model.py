@@ -1,8 +1,8 @@
 """LM wrapper: embeddings -> blocks -> norm -> logits, and the serving entry
 points ``prefill`` and ``serve_step``.
 
-Counterpart of ``repro.models.model`` for every family (``loss_fn`` and
-``param_shapes`` are not ported yet). Parameters are a plain dict:
+Counterpart of ``repro.models.model`` for every family, with the training
+loss ``loss_fn`` and ``param_shapes``. Parameters are a plain dict:
 ``embed`` (vocab, d), ``blocks`` (a list of per-layer dicts),
 ``final_norm`` (d,), ``unembed`` (d, vocab) and, for vlm, ``patch_proj``
 (PATCH_DIM, d), matrices in the reference's ``x @ W`` layout.
@@ -18,6 +18,7 @@ pos), as the reference does, which is not where prefill's text positions
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,18 +49,34 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> di
     """
     tf.check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = _ShapeOnly()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     dtype = param_dtype(cfg)
     params = {
         "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype),
-        "blocks": [tf.init_block(gen, cfg, dtype) for _ in range(cfg.n_layers)],
+        "blocks": tf.init_stacked_blocks(gen, cfg, dtype),
         "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
         "unembed": he_init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, dtype),
     }
     if cfg.family == "vlm":
         params["patch_proj"] = he_init(gen, (PATCH_DIM, cfg.d_model), PATCH_DIM, dtype)
     return params
+
+
+class _ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the inits read its device and draw nothing there."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The parameter tree as ``meta`` tensors: every leaf's shape and dtype,
+    with no draw and no allocation (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(cfg, device="meta")
 
 
 def _mrope_positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
@@ -117,6 +134,44 @@ def forward(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     B, S, _ = x.shape
     x = tf.stack_forward(params["blocks"], cfg, x, _positions(cfg, B, S, x.device))
     return _logits(params, cfg, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def _nll_sum(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+             final_softcap) -> torch.Tensor:
+    """The summed next-token negative log-likelihood of ``labels`` under the
+    float32 (softcapped) logits of ``x @ unembed``."""
+    logits = softcap((x @ unembed).float(), final_softcap)
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, labels[..., None].long()).sum()
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy over the text stream: ``batch``'s
+    "tokens" and "labels" (B, S_text) (and, for vlm, "patch_embeds"); the
+    front end's positions are excluded. A float32 scalar.
+
+    With ``cfg.logits_chunk`` dividing S_text the loss is taken chunk by
+    chunk, each chunk's logits formed under a checkpoint (recomputed in the
+    backward pass) and the chunks' sums added in order, so the (B, S,
+    vocab) logits never exist at once, as in the reference; otherwise in
+    one piece."""
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    x = tf.stack_forward(params["blocks"], cfg, x, _positions(cfg, B, S, x.device))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    labels = batch["labels"]
+    n_text = labels.shape[1]
+    x = x[:, S - n_text:, :]
+    unemb = params["unembed"].to(x.dtype)
+    chunk = cfg.logits_chunk
+    if chunk and n_text % chunk == 0:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, n_text, chunk):
+            total = total + checkpoint(_nll_sum, x[:, c0:c0 + chunk], unemb,
+                                       labels[:, c0:c0 + chunk], cfg.final_softcap,
+                                       use_reentrant=False)
+        return total / (B * n_text)
+    return _nll_sum(x, unemb, labels, cfg.final_softcap) / (B * n_text)
 
 
 def prefill(params, cfg: ArchConfig, batch: dict):

@@ -20,13 +20,22 @@ stored int8 with a float32 scale per (token, head), ``k_scale`` and
 decode quantises the new token's K/V into its slot and dequantises the
 cache to attend.
 
+With ``cfg.remat``, ``stack_forward`` checkpoints each layer through
+which a gradient is taken (``torch.utils.checkpoint``): "full" recomputes
+the whole block in the backward pass, "dots" keeps its matrix products'
+outputs. Serving (no gradient) never checkpoints.
+
 The mesh knobs (``attn_head_parallel``, ``pure_dp``, ``mlp_ep``) do
 nothing on one device: ``check_supported`` raises for a config that asks
 for them (ROADMAP Queue 1, item 15h).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -81,6 +90,15 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, dtype) -> dict:
         p["ln2"] = zeros()
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
+
+
+def init_stacked_blocks(gen: torch.Generator, cfg: ArchConfig, dtype) -> list[dict]:
+    """Every layer's parameters, drawn in order from ``gen``: a list of
+    ``cfg.n_layers`` per-layer dicts. The port keeps blocks unstacked (the
+    reference vmaps the init into leaves with a leading (n_layers,) axis
+    for ``jax.lax.scan``); ``convert.params_from_reference`` unstacks the
+    reference's."""
+    return [init_block(gen, cfg, dtype) for _ in range(cfg.n_layers)]
 
 
 def layer_windows(cfg: ArchConfig) -> list[int]:
@@ -159,14 +177,52 @@ def block_forward(p, cfg: ArchConfig, x, positions, window: int, collect=False):
     return _ffn(p, cfg, x), cache
 
 
+# the products whose outputs the "dots" remat policy saves
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep matrix products' outputs (mm, addmm, and the
+    experts' bmm), recompute the rest (the reference's
+    ``dots_with_no_batch_dims_saveable`` keeps the products without a
+    batch dimension)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(p, cfg: ArchConfig, x, positions, window: int):
+    """One layer's forward under activation checkpointing (``cfg.remat``,
+    where a gradient is taken): "full" saves only the block's input and
+    recomputes the block in the backward pass, "dots" saves the outputs of
+    its matrix products as well (selective activation checkpointing).
+    Remat changes memory, never values."""
+    body = lambda h: block_forward(p, cfg, h, positions, window)[0]
+    if cfg.remat_policy == "dots":
+        return checkpoint(body, x, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_dots))
+    return checkpoint(body, x, use_reentrant=False)
+
+
+def _leaves(p):
+    for v in p.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 def stack_forward(blocks, cfg: ArchConfig, x, positions, collect=False):
     """Every layer in order; with ``collect`` also the stacked caches,
     filled layer by layer: {"k", "v"}: (n_layers, B, S, G, hd) (int8, with
     "k_scale" and "v_scale" (n_layers, B, S, G), when
     ``cfg.kv_cache_quant``) where the config has attention, {"conv",
-    "state"} where it has an SSM."""
+    "state"} where it has an SSM. With ``cfg.remat``, each layer through
+    which a gradient is taken runs under ``_remat_block``, as the
+    reference wraps its scan body in ``jax.checkpoint``."""
     caches = {} if collect else None
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
     for i, (p, w) in enumerate(zip(blocks, layer_windows(cfg))):
+        if remat and (x.requires_grad or any(t.requires_grad for t in _leaves(p))):
+            x = _remat_block(p, cfg, x, positions, w)
+            continue
         x, kv = block_forward(p, cfg, x, positions, w, collect)
         if collect:
             for name, t in kv.items():

@@ -279,3 +279,17 @@ def test_restore_without_device_needs_the_card(tmp_path):
     C.save_checkpoint(str(tmp_path), _tree(1.0), 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         C.load_checkpoint(str(tmp_path), 0, _tree(0.0))
+
+
+def test_bf16_leaves_round_trip_bit_for_bit(tmp_path):
+    """numpy has no bf16: a bf16 leaf is stored as float32 (every bf16
+    value exactly) and cast back to its ``like`` leaf's dtype on restore,
+    so a bf16 model's training state restarts bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn((5, 7), generator=g).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32), "b": [torch.randn(4, generator=g)]}
+    C.save_checkpoint(str(tmp_path), tree, 1)
+    assert C.read_manifest(str(tmp_path), 1)["dtypes"] == ["float32", "int32", "float32"]
+    out = C.load_checkpoint(str(tmp_path), 1, tree, CPU)
+    assert out["w"].dtype == torch.bfloat16 and torch.equal(out["w"], tree["w"])
+    assert torch.equal(out["step"], tree["step"]) and torch.equal(out["b"][0], tree["b"][0])

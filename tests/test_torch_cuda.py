@@ -790,3 +790,59 @@ def test_int8_cache_on_the_card_matches_cpu(dev):
     r = chip_smoke.int8_card_vs_cpu(torch, got, want)
     assert r["finite"] and r["prefill_max_abs_dlogit"] <= 1e-4 and r["max_abs_dcode"] <= 1
     assert r["decode_max_abs_dlogit"] <= 1e-4 + chip_smoke.INT8_FLIP_LOGIT * r["codes_differing"]
+
+
+# The flash backward kernels: float32 each of dq, dk, dv within 1e-4 of its
+# largest magnitude of the plain version; bf16 the kernel's distance from
+# the float32 plain gradient at most twice the bf16 plain version's plus
+# 1e-3 of the largest magnitude (chip_smoke.py's bars); two launches bit
+# for bit.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window,softcap", [
+    ((2, 96, 4, 2, 16), 0, None), ((1, 256, 4, 1, 16), 16, 50.0), ((1, 1000, 8, 2, 64), 0, None),
+])
+def test_flash_bwd_kernel_matches_plain(dev, shape, window, softcap, dtype):
+    B, S, H, G, hd = shape
+    rng = _rng(30, S, H)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+                   for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd), (B, S, H, hd)))
+    o = ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    before = tfa.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=softcap)
+    again = ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, do, window=window, softcap=softcap)
+    f32 = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), window=window,
+                                      softcap=softcap)
+    for g, p, w in zip(got, plain, f32):
+        assert g.dtype == dtype and g.shape == p.shape
+        mx = float(w.abs().max())
+        if dtype == torch.float32:
+            assert float((g - p).abs().max()) <= 1e-4 * mx
+        else:
+            d_plain = float((p.float() - w).abs().max())
+            assert float((g.float() - w).abs().max()) <= 2 * d_plain + 1e-3 * mx
+
+
+def test_reduced_train_step_on_the_card_matches_cpu(dev):
+    """One loss and gradient of reduced(gemma2-27b) (window, softcaps,
+    float32, head dim 16) on the card, through both flash kernels, against
+    the CPU: the loss within 1e-5 relative, every gradient leaf within 1e-4
+    of its largest magnitude."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = tconfigs.reduced(tconfigs.get("gemma2-27b"))
+    params = TM.init_params(cfg, 0, "cpu")
+    toks = torch.from_numpy(_rng(31).integers(0, cfg.vocab, (2, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want_loss, want = value_and_grad(params, cfg, batch)
+    before = tfa.flash_attention_bwd.kernel_launches["float32"]
+    got_loss, got = value_and_grad(_to(params, dev), cfg, _to(batch, dev))
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd.kernel_launches["float32"] == before + 3 * cfg.n_layers
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())

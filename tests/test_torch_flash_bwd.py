@@ -1,0 +1,152 @@
+"""The gradient of the port's flash attention on the CPU.
+
+``ref.flash_attention_bwd_ref`` is the plain version of the backward
+kernels (``csrc/flash_attention_bwd.cu``): the same formulas step by step
+(row max and log-sum-exp recomputed from q and k, D = rowsum(dO o), P,
+dV, dP, dS with the softcap's derivative, dQ, dK, GQA sums). It is held
+against autograd through the port's plain forward, against ``jax.vjp`` of
+the reference's ``repro.models.attention.attention`` on the same numpy
+inputs (the reference takes this gradient by autodiff), and, wired into
+``models.attention.FlashAttention``, by ``torch.autograd.gradcheck`` in
+float64.
+
+Tolerance: 1e-5 of each gradient's largest magnitude in float32 (the
+formulas add in another order than autodiff does: readings ~1e-7);
+float64 against autograd 1e-12.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_threads import one_torch_thread  # noqa: F401
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as tattn
+
+F32_RTOL_OF_MAX = 1e-5
+F64_RTOL_OF_MAX = 1e-12
+# (B, S, H, G, hd), window, softcap: causal, window, softcap, rep 1 / 2 / 4,
+# a ragged S (not a multiple of the 256-row query block)
+CASES = [
+    ((2, 64, 2, 2, 16), None, None),
+    ((1, 96, 4, 2, 16), 16, None),
+    ((2, 48, 4, 1, 32), None, 50.0),
+    ((1, 80, 8, 2, 16), 24, 5.0),
+    ((1, 300, 4, 4, 16), None, None),
+    ((1, 300, 4, 1, 16), 100, 30.0),
+]
+
+
+def _inputs(shape, seed, dtype=np.float32):
+    B, S, H, G, hd = shape
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype)
+            for s in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd), (B, S, H, hd))]
+
+
+def _close(got, want, rtol_of_max):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got, np.float64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol_of_max * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,window,softcap", CASES)
+def test_bwd_ref_matches_autograd_of_the_plain_forward(shape, window, softcap):
+    for dtype, tol in ((torch.float32, F32_RTOL_OF_MAX), (torch.float64, F64_RTOL_OF_MAX)):
+        q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(shape, 1))
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ref.flash_attention_ref(*qkv, window=window, softcap=softcap, q_block=64)
+        want = torch.autograd.grad(o, qkv, do)
+        got = ref.flash_attention_bwd_ref(q, k, v, o.detach(), do, window=window,
+                                          softcap=softcap)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            _close(g.numpy(), w.numpy(), tol)
+
+
+@pytest.mark.parametrize("shape,window,softcap", CASES)
+def test_bwd_ref_matches_jax_vjp_of_the_reference(shape, window, softcap):
+    q, k, v, do = _inputs(shape, 2)
+    w = None if window is None else jnp.asarray(window, jnp.int32)
+    # the reference's query blocks must divide S: 100 at the ragged 300
+    qb = 100 if shape[1] % 256 and shape[1] > 256 else 256
+    fn = lambda q, k, v: jattn.attention(q, k, v, causal=True, window=w, attn_softcap=softcap,
+                                         q_block=qb)
+    o, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = ref.flash_attention_bwd_ref(*t, torch.from_numpy(np.array(o)), torch.from_numpy(do),
+                                      window=window, softcap=softcap)
+    for g, wnt in zip(got, want):
+        _close(g.numpy(), np.asarray(wnt), F32_RTOL_OF_MAX)
+
+
+@pytest.mark.parametrize("shape,window,softcap", [
+    ((1, 7, 2, 1, 4), None, None), ((2, 9, 4, 2, 4), 3, 5.0), ((1, 12, 4, 4, 8), 0, None),
+])
+def test_flash_attention_function_gradcheck(shape, window, softcap):
+    q, k, v, _ = (torch.from_numpy(a).requires_grad_(True)
+                  for a in _inputs(shape, 3, np.float64))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tattn.FlashAttention.apply(q, k, v, window, softcap), (q, k, v))
+
+
+def test_attention_takes_the_function_only_for_a_gradient():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 32, 4, 2, 16), 4))
+    plain = tattn.attention(q, k, v, window=8, attn_softcap=50.0)
+    assert plain.grad_fn is None
+    with torch.no_grad():
+        assert tattn.attention(q.requires_grad_(True), k, v).grad_fn is None
+    o = tattn.attention(q, k, v, window=8, attn_softcap=50.0)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(o.detach(), plain)  # the CPU forward's values do not change
+    (dq,) = torch.autograd.grad(o, q, do)
+    want = ref.flash_attention_bwd_ref(q.detach(), k, v, plain, do, window=8, softcap=50.0)[0]
+    assert torch.equal(dq, want)
+
+
+def test_wrapper_on_the_cpu_is_the_plain_version():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 40, 4, 2, 16), 5))
+    o = ops.flash_attention(q, k, v, window=10)
+    got = ops.flash_attention_bwd(q, k, v, o, do, window=10)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, window=10)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # window <= 0 is global, as in the forward
+    for g, w in zip(ops.flash_attention_bwd(q, k, v, o, do, window=0),
+                    ref.flash_attention_bwd_ref(q, k, v, o, do)):
+        assert torch.equal(g, w)
+
+
+def test_wrapper_refuses_what_the_kernels_do_not_take():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 16, 4, 2, 16), 6))
+    o = ref.flash_attention_ref(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q[..., :8], k[..., :8], v[..., :8], o[..., :8], do[..., :8])
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_attention_bwd(q, k, v, o[:, :8], do)
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_attention_bwd(q, k, v, o, do.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), do.double())
+    with pytest.raises(ValueError, match="KV heads"):
+        fa.flash_attention_bwd(q[:, :, :3], k, v, o[:, :, :3], do[:, :, :3])
+    with pytest.raises(ValueError, match="not contiguous"):
+        t = do.transpose(1, 3).contiguous().transpose(1, 3)
+        fa.flash_attention_bwd(q, k, v, o, t)
+
+
+def test_bwd_ref_bf16_rounds_float32_gradients_once():
+    """bf16 inputs: the plain version computes in float32 and rounds each
+    gradient once, so it equals the float32 gradient of the same (bf16)
+    values, rounded."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs((1, 64, 4, 2, 16), 7))
+    o = ref.flash_attention_ref(q, k, v, softcap=50.0)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, do, softcap=50.0)
+    want = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), softcap=50.0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
