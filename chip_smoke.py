@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
 
   build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh;
            ptxas's report of every kernel (the float32 flash kernel's by
-           head dim: no spill at hd 128), and for every sortscan and
+           head dim: no spill at hd 128; every flash backward kernel's:
+           none may spill or touch local memory, and each bf16 dK/dV and
+           dQ kernel holds HGMMA and UTMALDG instructions), and for every
+           sortscan and
            bisect instantiation its registers, shared memory, stack and
            spills and its SASS count of barriers, shared- and local-memory
            ops and shuffles (none may spill or touch local memory; the
@@ -38,8 +41,10 @@ Phases, each printing one JSON line:
   fig5     run_all at the paper's Fig. 5 large-scale config (T = 300).
   grid     sweep.make_grid -> build_batch -> run_grid -> summarize over 64
            Fig. 2 configs, one fused launch per step.
-  flash    both flash-attention kernels against their plain version: the
-           reference tests' shapes (plus hd 80, windows, softcaps, S = 1,
+  flash    both flash-attention kernels against their plain version (o
+           with the row log-sum-exp written bit for bit o without it, the
+           lse against the plain version's, at the small cases and the
+           path shapes): the reference tests' shapes (plus hd 80, windows, softcaps, S = 1,
            S around one 128-row tile, a ragged 8191, hd 16, 48 and 112, and
            GQA rep 5 (25 query heads, window 1024) and 7) in float32 (the
            FFMA kernel) and bf16 (the tensor-core kernel), the full-width
@@ -139,18 +144,24 @@ Phases, each printing one JSON line:
            a fresh Engine; musicgen's and MoE's first tokens also against
            prefill's).
   train    the training slice. First the flash backward kernels
-           (csrc/flash_attention_bwd.cu) against their plain version on
-           the card, in float32 and bf16, at BWD_SMALL_CASES and at
-           stablelm-3b's training shape and gemma2-27b's global layer
-           (with and without its 4096 window), two launches bit for bit,
-           with times, the bound and SDPA's backward at the last three.
+           (csrc/flash_attention_bwd.cu; bf16 on wgmma and TMA, float32 in
+           FFMA, both fed the forward's lse) against their plain version
+           on the card (bf16: against the emulation of its arithmetic,
+           ref.flash_attention_bwd_emulation), in float32 and bf16, at
+           BWD_SMALL_CASES and at stablelm-3b's training shape and
+           gemma2-27b's global layer (with and without its 4096 window),
+           two launches bit for bit, the forward's o with and without the
+           lse bit for bit, with times, the bound and SDPA's backward at
+           the last three (and, in bf16 at stablelm-3b's shape, SDPA's
+           gradient's distance from the float32 plain one beside the
+           emulation's).
            Then the train path: stablelm-3b at full width and 2 layers,
            loss and backward through the kernels against the plain
            attention pair (float32 and bf16; wq, wk and wv get gradients);
            stablelm-3b at full width and depth in bf16 through
            launch/train.py's build and the Trainer (4 x 4096 tokens, 1 +
            3 steps: ms a step, tokens/s, peak memory, 2 x 32 forward and
-           32 backward launches a step, one step under the profiler for
+           32 backward calls (3 kernels each) a step, one step under the profiler for
            the backward kernels' share); every family's reduced config,
            one train step on the card against the CPU; the Trainer's
            restart on the card, bit for bit; 25 steps with compressed
@@ -322,6 +333,12 @@ FLASH_BF16_RTOL = 2.0 ** -6
 FLASH_BF16_NEAR0 = 1e-4
 FLASH_BF16_PROB = 2.0 ** -8
 FLASH_TIMING_REPS = 10
+# The row log-sum-exp both forward kernels write (return_lse) against the
+# plain version's: 1e-5 relative, absolute where |lse| < 1 (scores summed
+# in float32 in another order, p by ex2.approx: readings 1.3e-7 to 4.4e-7
+# on an NVIDIA H100 80GB HBM3); o with the lse written must be o without it, bit for
+# bit (serving writes none).
+FLASH_LSE_RTOL = 1e-5
 # The flash phase's small cases, (B, S, H, G, hd), window, softcap, in both
 # dtypes: the reference tests' shapes, hd 80, windows, softcaps, S = 1, S
 # around one 128-row tile, a ragged 8191, and the head dims 16, 48 and 112
@@ -475,15 +492,26 @@ FAMILY_SERVE_NEW_TOKENS = 16
 # Phase train: the training slice (ROADMAP Queue 1, item 15g). The flash
 # backward kernels against their plain version at these shapes (the last
 # three also timed: stablelm-3b's training shape and gemma2-27b's global
-# layer, with and without its 4096 window), in float32 and bf16. Bars:
-# float32, each of dq, dk, dv within BWD_F32_RTOL_OF_MAX of its largest
-# magnitude of the plain version (both add in float32, in other orders;
-# readings 1.9e-7 to 5.2e-6 in call 1 of PR 22); bf16, the kernel's
+# layer, with and without its 4096 window), in float32 and bf16, fed the
+# lse of the forward kernel of their dtype. Bars: float32, each of dq, dk,
+# dv within BWD_F32_RTOL_OF_MAX of its largest magnitude of the plain
+# version (both add in float32, in other orders; readings 0.004 to 0.061 of
+# the bar on an NVIDIA H100 80GB HBM3); bf16, the kernel's distance from the emulation of
+# its arithmetic (ref.flash_attention_bwd_emulation: P^T and dS^T rounded
+# once to bf16 before the products, as the tensor-core kernels do) at most
+# BWD_BF16_EMU_ULPS bf16 ulps of the largest magnitude of the float32
+# gradient. The two differ by the order of float32 sums, so by roundings
+# that flip: an output's, at most one ulp of the largest element, and a P
+# or dS entry's, which moves one term of a sum by one ulp of that entry
+# (<= 2^-8 |dO| or |Q| for p in [0.5, 1)); the second ulp covers those.
+# The train slice's per-leaf bar is the plain version's: the kernels'
 # distance from the float32 plain gradient of the same (upcast) inputs at
-# most BWD_BF16_PLAIN_FACTOR times the bf16 plain version's own, plus
-# BWD_BF16_RTOL_OF_MAX of the largest magnitude (both compute in float32 and
-# round once, so the bf16 plain version is the rounding alone); two
-# launches bit for bit (no atomics).
+# most BWD_BF16_PLAIN_FACTOR times the bf16 plain version's (the output
+# rounding alone) plus BWD_BF16_RTOL_OF_MAX of the largest magnitude. The
+# kernels here are not held to it: with P^T and dS^T rounded, the
+# emulation itself exceeds it at small shapes (PERF.md section 6, read by
+# python tests/test_torch_flash_bwd_numerics.py). Two launches bit for
+# bit (no atomics).
 BWD_SMALL_CASES = [
     ((2, 96, 4, 2, 16), 0, None),
     ((1, 256, 4, 1, 16), 16, 50.0),
@@ -492,6 +520,7 @@ BWD_SMALL_CASES = [
     ((1, 1024, 28, 4, 128), 0, None),   # GQA rep 7
     ((1, 4096, 25, 5, 64), 1024, None),  # hymba-1.5b's
     ((1, 4096, 16, 8, 112), 0, None),
+    ((1, 1024, 8, 4, 80), 256, 50.0),   # hd 80 with a window and the softcap
 ]
 BWD_PATH_SHAPES = {
     "stablelm-3b": ((4, 4096, 32, 32, 80), 0, None),
@@ -501,7 +530,10 @@ BWD_PATH_SHAPES = {
 BWD_F32_RTOL_OF_MAX = 1e-4
 BWD_BF16_PLAIN_FACTOR = 2.0
 BWD_BF16_RTOL_OF_MAX = 1e-3
+BWD_BF16_EMU_ULPS = 2
 BWD_TIMING_REPS = 5
+# the plain gradient takes 120-200 ms a call at the path shapes
+BWD_PLAIN_TIMING_REPS = 2
 # the five products of the gradient (QK^T, dO V^T, P^T dO, dS^T Q, dS K),
 # each 2 hd FLOPs a head a visible pair
 BWD_PRODUCTS = 5
@@ -960,6 +992,22 @@ def flash_sfu_floor_ms(n_ops, sms, clock_hz) -> float:
     return n_ops / (sms * SFU_PER_CLOCK_PER_SM * clock_hz) * 1e3
 
 
+def lse_error(got, want) -> float:
+    """The largest |got - want| / max(|want|, 1) of two row log-sum-exps."""
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def lse_checks(torch, label: str, o, fwd, want_lse) -> dict:
+    """The forward ``fwd(return_lse=True)`` against its launch without the
+    lse (``o``, bit for bit) and its lse against the plain ``want_lse``;
+    raises on either."""
+    o_l, lse = fwd(return_lse=True)
+    row = {"o_bits_with_lse": bool(torch.equal(o, o_l)), "lse_err": lse_error(lse, want_lse)}
+    check(row["o_bits_with_lse"], f"{label}: o with the lse written differs from o without")
+    check(row["lse_err"] <= FLASH_LSE_RTOL, f"{label}: lse off the plain version's: {row}")
+    return row
+
+
 def flash_bf16_errors(got, want, want_abs) -> dict:
     """The bf16 kernel's error against the plain version: max |diff|, the
     worst element over the bar min(0.05, 1e-4 + 2^-6 |o| + 2^-8 |o|_abs),
@@ -1047,18 +1095,21 @@ def flash_f32_build(ptxas: dict) -> dict:
     return out
 
 
-def flash_bwd_kernels(ptxas: dict) -> dict:
+def flash_bwd_kernels(ptxas: dict, sass: dict) -> dict:
     """ptxas's registers, stack and spills of each flash backward kernel
-    instantiation, as "kernel<dtype,hd>" (from ``ptxas_by_kernel``)."""
+    instantiation, as "kernel<hd>" (dK/dV and dQ) or "kernel<dtype>" (the D
+    pass), with its SASS count of HGMMA, UTMALDG, LDL and STL instructions
+    (from ``ptxas_by_kernel`` and ``sass_ops_by_kernel``)."""
     import re
     out = {}
     for name, rep in ptxas.items():
-        hit = re.search(r"(flash_bwd_\w+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", name)
+        hit = re.search(r"(flash_bwd_\w+?_kernel)I(?:Li(\d+)E|(f|13__nv_bfloat16)E)", name)
         if hit:
-            dtype = "float32" if hit.group(2) == "f" else "bf16"
-            out[f"{hit.group(1)}<{dtype},{hit.group(3)}>"] = {
-                k: rep[k] for k in ("registers", "stack_bytes", "spill_store_bytes",
-                                    "spill_load_bytes")}
+            arg = hit.group(2) or {"f": "float32"}.get(hit.group(3), "bf16")
+            out[f"{hit.group(1)}<{arg}>"] = {
+                **{k: rep[k] for k in ("registers", "stack_bytes", "spill_store_bytes",
+                                       "spill_load_bytes")},
+                **{op: sass.get(name, {}).get(op, 0) for op in ("HGMMA", "UTMALDG", "LDL", "STL")}}
     return out
 
 
@@ -1214,10 +1265,14 @@ def flash_phase(torch, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for shape, window, cap in FLASH_SMALL_CASES:
             q, k, v = qkv(*shape, dtype)
-            got = ops.flash_attention(q, k, v, window=window, softcap=cap)
-            want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+            fwd = lambda **kw: ops.flash_attention(q, k, v, window=window, softcap=cap, **kw)
+            got = fwd()
+            want, want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=cap,
+                                                     return_lse=True)
             torch.cuda.synchronize()
-            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap}
+            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap,
+                   **lse_checks(torch, f"flash {dtype} {shape} window={window} softcap={cap}",
+                                got, fwd, want_lse)}
             if dtype == torch.float32:
                 row["max_abs_err"] = float((got - want).abs().max())
                 check(row["max_abs_err"] <= FLASH_F32_ATOL,
@@ -1233,12 +1288,15 @@ def flash_phase(torch, dev) -> dict:
     q, k, v = qkv(B, S, H, G, hd, torch.bfloat16)
     path = {}
     for label, window in (("global", 0), ("window4096", 4096)):
-        run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
+        run = lambda **kw: ops.flash_attention(q, k, v, window=window, softcap=50.0, **kw)
         plain = lambda: ref.flash_attention_ref(q, k, v, window=window, softcap=50.0)
-        want = plain()
+        want, want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=50.0,
+                                                 return_lse=True)
         want_abs = ref.flash_attention_ref(q, k, v.abs(), window=window, softcap=50.0)
-        row = flash_bf16_errors(run(), want, want_abs)
-        del want_abs
+        got = run()
+        row = {**flash_bf16_errors(got, want, want_abs),
+               **lse_checks(torch, f"flash path shape bf16 {label}", got, run, want_lse)}
+        del want_abs, got, want_lse
         check(row["max_err_over_bar"] <= 1.0, f"flash path shape bf16 {label}: {row}")
         t_b, by = flash_bound(B, S, H, G, hd, window, 2)
         tanh_exp_pairs = flash_tanh_exp_pairs(torch, q, k, window, 50.0)
@@ -1272,13 +1330,18 @@ def flash_phase(torch, dev) -> dict:
     path_f32, library_f32 = {}, {}
     q, k, v = qkv(B, S, H, G, hd, torch.float32)
     for label, window in (("global", 0), ("window4096", 4096)):
-        run = lambda: ops.flash_attention(q, k, v, window=window, softcap=50.0)
+        run = lambda **kw: ops.flash_attention(q, k, v, window=window, softcap=50.0, **kw)
         plain = lambda: ref.flash_attention_ref(q, k, v, window=window, softcap=50.0)
-        err = float((run() - plain()).abs().max())
+        want, want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=50.0,
+                                                 return_lse=True)
+        got = run()
+        err = float((got - want).abs().max())
         check(err <= FLASH_F32_ATOL, f"flash path shape float32 {label}: max abs err {err}")
+        lse_row = lse_checks(torch, f"flash path shape float32 {label}", got, run, want_lse)
+        del got, want, want_lse
         t_b, by = flash_bound(B, S, H, G, hd, window, 4, FP32_OPS_PER_S)
         path_f32[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "window": window, "softcap": 50.0,
-                           "max_abs_err": err, "ms": device_ms(run, FLASH_TIMING_REPS),
+                           "max_abs_err": err, **lse_row, "ms": device_ms(run, FLASH_TIMING_REPS),
                            "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
                            "bound_ms": t_b, "bound_by": by,
                            "launch_floor_ms": device_ms(
@@ -2154,38 +2217,48 @@ def flash_bwd_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bwd_errors(got, plain, f32) -> dict:
+def bwd_errors(got, plain, f32, emu=None) -> dict:
     """For dq, dk and dv: the largest magnitude of the float32 plain
     gradient, the kernel's largest distance from the plain version of its
-    own dtype, and the kernel's and that plain version's from the float32
-    one."""
+    own dtype, the kernel's and that plain version's from the float32 one,
+    and with ``emu`` (bf16) the kernel's from the emulation of its
+    arithmetic and the emulation's from the float32 gradient."""
     out = {}
-    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, f32):
+    for i, (name, g, p, w) in enumerate(zip(("dq", "dk", "dv"), got, plain, f32)):
         out[name] = {"max_abs": float(w.abs().max()),
                      "kernel_vs_plain": float((g.float() - p.float()).abs().max()),
                      "kernel_vs_f32": float((g.float() - w).abs().max()),
                      "plain_vs_f32": float((p.float() - w).abs().max())}
+        if emu is not None:
+            out[name]["kernel_vs_emulation"] = float((g.float() - emu[i].float()).abs().max())
+            out[name]["emulation_vs_f32"] = float((emu[i].float() - w).abs().max())
     return out
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude x (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
 def bwd_bar(dtype: str, e: dict) -> float:
     """A gradient's error over its bar (<= 1 passes): float32, the kernel
     against the plain version at BWD_F32_RTOL_OF_MAX of the largest
-    magnitude; bf16, the kernel's distance from the float32 gradient
-    against BWD_BF16_PLAIN_FACTOR times the bf16 plain version's plus
-    BWD_BF16_RTOL_OF_MAX of the largest magnitude."""
+    magnitude; bf16, the kernel's distance from the emulation against
+    BWD_BF16_EMU_ULPS bf16 ulps of the largest magnitude."""
     if dtype == "float32":
         return e["kernel_vs_plain"] / (BWD_F32_RTOL_OF_MAX * e["max_abs"])
-    return e["kernel_vs_f32"] / (BWD_BF16_PLAIN_FACTOR * e["plain_vs_f32"]
-                                 + BWD_BF16_RTOL_OF_MAX * e["max_abs"])
+    return e["kernel_vs_emulation"] / (BWD_BF16_EMU_ULPS * bf16_ulp(e["max_abs"]))
 
 
-def sdpa_bwd_yardstick(torch, q, k, v, do, window: int) -> dict:
+def sdpa_bwd_yardstick(torch, q, k, v, do, window: int, f32=None) -> dict:
     """SDPA's backward without the softcap on the same inputs: the time of
     forward plus backward under autograd, less the forward's (the call as
     ``sdpa_yardstick`` makes it: is_causal with enable_gqa for a bf16
     global layer, else the KV heads expanded outside the timed calls, and
-    the boolean window mask for a windowed layer)."""
+    the boolean window mask for a windowed layer). With ``f32`` (the
+    float32 plain gradient of the same function), SDPA's gradients'
+    distance from it over each one's largest magnitude."""
     import torch.nn.functional as F
     expand = window > 0 or q.dtype != torch.bfloat16
     rep = q.shape[2] // k.shape[2]
@@ -2204,15 +2277,24 @@ def sdpa_bwd_yardstick(torch, q, k, v, do, window: int) -> dict:
     fwd_bwd = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)
     f_ms = device_ms(fwd, BWD_TIMING_REPS)
     fb_ms = device_ms(fwd_bwd, BWD_TIMING_REPS)
-    return {"call": "torch.nn.functional." + name + (", KV heads expanded" if expand else "")
-                    + ": forward + backward under autograd, less the forward",
-            "forward_ms": f_ms, "forward_backward_ms": fb_ms, "library_ms": fb_ms - f_ms}
+    out = {"call": "torch.nn.functional." + name + (", KV heads expanded" if expand else "")
+                   + ": forward + backward under autograd, less the forward",
+           "forward_ms": f_ms, "forward_backward_ms": fb_ms, "library_ms": fb_ms - f_ms}
+    if f32 is not None:
+        grads = [g.transpose(1, 2) for g in fwd_bwd()]
+        if expand:  # the expanded KV heads' gradients summed back over rep
+            grads[1:] = [g.unflatten(2, (k.shape[2] // rep, rep)).sum(3) for g in grads[1:]]
+        out["vs_f32_of_max"] = {n: float((g.float() - w).abs().max()) / float(w.abs().max())
+                                for n, g, w in zip(("dq", "dk", "dv"), grads, f32)}
+    return out
 
 
 def train_kernel_checks(torch, dev) -> dict:
     """Phase train, part 1: the backward kernels against their plain version
-    (BWD_SMALL_CASES and BWD_PATH_SHAPES, float32 and bf16), two launches
-    bit for bit, and at the path shapes the kernel's time, the plain
+    (BWD_SMALL_CASES and BWD_PATH_SHAPES, float32 and bf16; bf16 against
+    the emulation of its arithmetic), two launches bit for bit, the
+    forward's o with and without its lse bit for bit and its lse against
+    the plain one, and at the path shapes the kernel's time, the plain
     version's, the bound and SDPA's backward. Launches made here are not a
     path's."""
     from repro_torch.kernels import ops, ref
@@ -2230,51 +2312,70 @@ def train_kernel_checks(torch, dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q, k, v, do = (t.to(dtype) for t in master)
-            o = ops.flash_attention(q, k, v, window=window, softcap=cap)
-            run = lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
-            plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+            fwd = lambda **kw: ops.flash_attention(q, k, v, window=window, softcap=cap, **kw)
+            o = fwd()
+            want_lse = ref.flash_attention_ref(q, k, v, window=window, softcap=cap,
+                                               return_lse=True)[1]
+            fwd_row = lse_checks(torch, f"train forward {name} {shape} window={window} "
+                                        f"softcap={cap}", o, fwd, want_lse)
+            del want_lse
+            _, lse = fwd(return_lse=True)
+            run = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, window=window,
+                                                  softcap=cap)
+            plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window,
                                                         softcap=cap)
             got, again = run(), run()
             torch.cuda.synchronize()
             want = plain()
-            f32 = want if dtype == torch.float32 else ref.flash_attention_bwd_ref(
-                *(t.float() for t in (q, k, v, o, do)), window=window, softcap=cap)
-            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap,
+            bf16 = dtype == torch.bfloat16
+            f32 = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                              window=window, softcap=cap) if bf16 else want
+            emu = ref.flash_attention_bwd_emulation(q, k, v, o, lse, do, window=window,
+                                                    softcap=cap) if bf16 else None
+            row = {"B_S_H_G_hd": shape, "window": window, "softcap": cap, **fwd_row,
                    "bitwise_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
-                   **bwd_errors(got, want, f32)}
-            del got, again, want, f32
+                   **bwd_errors(got, want, f32, emu)}
+            del got, again, want, emu
             row["max_err_over_bar"] = max(bwd_bar(name, row[g]) for g in ("dq", "dk", "dv"))
             check(row["bitwise_repeat"], f"flash backward {name} {shape}: two launches differ")
             check(row["max_err_over_bar"] <= 1.0,
                   f"flash backward {name} {shape} window={window} softcap={cap}: {row}")
             if label is None:
                 small[name].append(row)
+                del f32
                 continue
             t_b, by = flash_bwd_bound(B, S, H, G, hd, window, q.element_size(),
-                                      BF16_OPS_PER_S if dtype == torch.bfloat16
-                                      else FP32_OPS_PER_S)
+                                      BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
             row.update({"dtype": name, "ms": device_ms(run, BWD_TIMING_REPS),
-                        "plain_ms": device_ms(plain, BWD_TIMING_REPS),
+                        "plain_ms": device_ms(plain, BWD_PLAIN_TIMING_REPS),
                         "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(S, window)})
             if cap is not None:  # the kernel on the library call's function
-                o_nc = ops.flash_attention(q, k, v, window=window)
+                o_nc, lse_nc = ops.flash_attention(q, k, v, window=window, return_lse=True)
                 row["kernel_without_softcap_ms"] = device_ms(
-                    lambda: ops.flash_attention_bwd(q, k, v, o_nc, do, window=window),
+                    lambda: ops.flash_attention_bwd(q, k, v, o_nc, lse_nc, do, window=window),
                     BWD_TIMING_REPS)
-                del o_nc
-            row["library"] = sdpa_bwd_yardstick(torch, q, k, v, do, window)
+                del o_nc, lse_nc
+            # SDPA's own bf16 distance from the float32 gradient, beside the
+            # emulation's, where it computes the same function (no softcap)
+            row["library"] = sdpa_bwd_yardstick(torch, q, k, v, do, window,
+                                                f32 if bf16 and cap is None else None)
             row["library_ms"] = row["library"]["library_ms"]
+            if "vs_f32_of_max" in row["library"]:
+                row["emulation_vs_f32_of_max"] = {
+                    g: row[g]["emulation_vs_f32"] / row[g]["max_abs"] for g in ("dq", "dk", "dv")}
             path[f"{label}_{name}"] = row
-            del q, k, v, do, o
+            del q, k, v, do, o, lse, f32
             torch.cuda.empty_cache()
         del master
         torch.cuda.empty_cache()
     return {"phase": "train", "part": "kernels", "phase_s": time.perf_counter() - t_phase,
             "small": small, "path": path,
             "bars": {"float32_rtol_of_max": BWD_F32_RTOL_OF_MAX,
-                     "bf16": f"|kernel - f32 plain| <= {BWD_BF16_PLAIN_FACTOR} |bf16 plain - "
-                             f"f32 plain| + {BWD_BF16_RTOL_OF_MAX} max|f32 plain|"},
-            "timing": f"device time, median of {BWD_TIMING_REPS} calls between CUDA events"}
+                     "bf16": f"|kernel - emulation| <= {BWD_BF16_EMU_ULPS} bf16 ulps of "
+                             f"max|f32 plain|",
+                     "lse_rtol": FLASH_LSE_RTOL},
+            "timing": f"device time, median of {BWD_TIMING_REPS} calls between CUDA events "
+                      f"({BWD_PLAIN_TIMING_REPS} for the plain version)"}
 
 
 @contextlib.contextmanager
@@ -2282,10 +2383,10 @@ def plain_attention_pair(ops, ref):
     """The plain attention and its plain gradient in the kernels' places
     (``models.attention`` reaches both through ``kernels.ops``)."""
     real = ops.flash_attention, ops.flash_attention_bwd
-    ops.flash_attention = lambda q, k, v, *, window=None, softcap=None: \
-        ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
-    ops.flash_attention_bwd = lambda q, k, v, o, do, *, window=None, softcap=None: \
-        ref.flash_attention_bwd_ref(q, k, v, o, do, window=window, softcap=softcap)
+    ops.flash_attention = lambda q, k, v, *, window=None, softcap=None, return_lse=False: \
+        ref.flash_attention_ref(q, k, v, window=window, softcap=softcap, return_lse=return_lse)
+    ops.flash_attention_bwd = lambda q, k, v, o, lse, do, *, window=None, softcap=None: \
+        ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window, softcap=softcap)
     try:
         yield
     finally:
@@ -2357,7 +2458,8 @@ def train_slice_check(torch, dev) -> dict:
     line = {"phase": "train", "part": "slice", "arch": TRAIN_ARCH, "layers": TRAIN_SLICE_LAYERS,
             "tokens": TRAIN_SLICE_TOKENS, "float32": f32, "bf16": bf16,
             "bars": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol_of_max": TRAIN_GRAD_RTOL_OF_MAX,
-                     "bf16": "per leaf, as the kernel's bf16 bar"},
+                     "bf16": f"per leaf, |kernels - f32 plain| <= {BWD_BF16_PLAIN_FACTOR} "
+                             f"|bf16 plain - f32 plain| + {BWD_BF16_RTOL_OF_MAX} max"},
             "phase_s": time.perf_counter() - t0}
     emit(line)
     check(f32["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"train slice float32 loss: {f32}")
@@ -2464,7 +2566,7 @@ def train_full(torch, dev) -> dict:
     layers = published.n_layers
     for r in rows:
         check(r["fwd_launches"] == 2 * layers and r["bwd_calls"] == layers
-              and r["bwd_kernel_launches"] == layers * len(fa.BWD_KERNELS),
+              and r["bwd_kernel_launches"] == layers * len(fa.BWD_KERNELS["bf16"]),
               f"train full: step {r['step']} launched {r}")
     check(peak < TRAIN_PEAK_BYTES, f"train full: peak memory {peak / 1e9:.1f} GB")
     check(not written, f"train full: checkpoints written: {written}")
@@ -3441,9 +3543,12 @@ def smoke(torch) -> dict:
     # spill at hd 128, the path's
     flash_build = flash_f32_build(ptxas_by_kernel(
         build.library_path("flash_attention.cu").with_suffix(".log").read_text()))
-    # the flash backward kernels: registers and spills by instantiation (no bar)
-    flash_bwd_build = flash_bwd_kernels(ptxas_by_kernel(
-        build.library_path("flash_attention_bwd.cu").with_suffix(".log").read_text()))
+    # the flash backward kernels: registers, spills and SASS by
+    # instantiation; none spills or touches local memory, and every bf16
+    # dK/dV and dQ kernel runs on wgmma fed by TMA
+    bwd_lib = build.library_path("flash_attention_bwd.cu")
+    flash_bwd_build = flash_bwd_kernels(ptxas_by_kernel(bwd_lib.with_suffix(".log").read_text()),
+                                        sass_ops_by_kernel(str(bwd_lib)))
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build,
           "flash_bwd_kernels": flash_bwd_build})
@@ -3452,6 +3557,15 @@ def smoke(torch) -> dict:
     check(flash_build[128]["stack_bytes"] == flash_build[128]["spill_store_bytes"]
           == flash_build[128]["spill_load_bytes"] == 0,
           f"the float32 flash kernel spills at hd 128: {flash_build[128]}")
+    wgmma_bwd = [f"{k}<{hd}>" for hd in autotune.FLASH_HEAD_DIMS
+                 for k in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")]
+    check(all(k in flash_bwd_build for k in wgmma_bwd),
+          f"bf16 backward instantiations built: {sorted(flash_bwd_build)}")
+    for label, ent in flash_bwd_build.items():
+        check(ent["stack_bytes"] == ent["spill_store_bytes"] == ent["spill_load_bytes"]
+              == ent["LDL"] == ent["STL"] == 0, f"{label} spills or touches local memory: {ent}")
+        check(label not in wgmma_bwd or (ent["HGMMA"] > 0 and ent["UTMALDG"] > 0),
+              f"{label} is not on wgmma fed by TMA: {ent}")
     # the sortscan kernels of L <= 256 work in registers and shuffles: no
     # shared memory, no barrier; no projection kernel spills at any width
     # or touches local memory
@@ -4303,16 +4417,22 @@ def smoke(torch) -> dict:
         main = bwd_path[f"{TRAIN_ARCH}_{dtype}"]
         rows = train_kernels["small"][dtype] + [r for r in bwd_path.values()
                                                 if r["dtype"] == dtype]
+        per_call = fa_kernel.BWD_KERNELS["bf16" if dtype == "bfloat16" else "float32"]
         kernels.append({
-            "name": name, "kernel": ", ".join(fa_kernel.BWD_KERNELS),
+            "name": name, "kernel": ", ".join(per_call),
             "route": "cuda", "source": csrc + "flash_attention_bwd.cu", "replaces": None,
             "note": "no Pallas counterpart: the gradient of the function of "
                     "src/repro/kernels/flash_attention.py:64, which the reference takes by "
                     "autodiff of its jnp attention",
             "launches": sum(by_path(i).values()), "launches_by_path": by_path(i),
-            "launches_per_call": len(fa_kernel.BWD_KERNELS),
+            "launches_per_call": len(per_call),
             "max_abs_err": max(r[g]["kernel_vs_plain"] for r in rows for g in ("dq", "dk", "dv")),
             "max_err_over_bar": max(r["max_err_over_bar"] for r in rows),
+            **({"max_abs_err_vs_emulation": max(r[g]["kernel_vs_emulation"] for r in rows
+                                                for g in ("dq", "dk", "dv")),
+                "library_vs_f32_of_max": main["library"]["vs_f32_of_max"],
+                "emulation_vs_f32_of_max": main["emulation_vs_f32_of_max"]}
+               if dtype == "bfloat16" else {}),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": main["B_S_H_G_hd"],

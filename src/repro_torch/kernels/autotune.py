@@ -97,12 +97,20 @@ FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 FLASH_TC_BLOCK_Q = 128
 FLASH_TC_BLOCK_K = 128
 FLASH_TC_STAGES = 2
-# The flash backward (csrc/flash_attention_bwd.cu, both dtypes): query rows
-# and keys per tile and threads per block (a 16 x 16 grid of 4 x 4 score
-# microtiles). Fixed; its C entry refuses others.
+# The float32 flash backward (csrc/flash_attention_bwd.cu, namespace ffma):
+# query rows and keys per tile and threads per block (a 16 x 16 grid of
+# 4 x 4 score microtiles). Fixed; its C entry refuses others.
 FLASH_BWD_BLOCK_Q = 64
 FLASH_BWD_BLOCK_K = 64
 FLASH_BWD_THREADS = 256
+# The bf16 flash backward (the same file, namespace tc: wgmma fed by TMA):
+# a block's rows (keys for dK/dV, queries for dQ; two consumer warpgroups
+# of 64), a streamed tile's rows (queries for dK/dV, keys for dQ), and the
+# streamed tiles in flight. The row statistics' scratch is padded to whole
+# blocks. Fixed; its C entry refuses others.
+FLASH_BWD_TC_BLOCK_ROWS = 128
+FLASH_BWD_TC_TILE_ROWS = 64
+FLASH_BWD_TC_STAGES = 2
 # warm-up launches before a candidate is timed, and timed launches
 WARMUP_CALLS = 3
 TUNE_REPEATS = 10

@@ -2,19 +2,22 @@
 
 Counterpart of ``repro.kernels.flash_attention``, and of its gradient,
 which the reference takes by autodiff of jnp: ``flash_attention_bwd``
-wraps the three backward kernels of ``csrc/flash_attention_bwd.cu``
-(plain version ``ref.flash_attention_bwd_ref``). ``flash_attention`` is
-the wrapper of two CUDA kernels in ``csrc/flash_attention.cu``: bf16
-tensors launch the tensor-core kernel ``flash_attention_wgmma_kernel``,
-float32 tensors the FFMA kernel ``flash_attention_f32_kernel``; CPU
-tensors compute the plain version ``ref.flash_attention_ref``. Either way
+wraps the backward kernels of ``csrc/flash_attention_bwd.cu`` (plain
+version ``ref.flash_attention_bwd_ref``), three a call
+(``BWD_KERNELS``, by dtype). ``flash_attention`` is the wrapper of two
+CUDA kernels in ``csrc/flash_attention.cu``: bf16 tensors launch the
+tensor-core kernel ``flash_attention_wgmma_kernel``, float32 tensors the
+FFMA kernel ``flash_attention_f32_kernel``; CPU tensors compute the plain
+version ``ref.flash_attention_ref``. With ``return_lse`` the same launch
+also writes each row's log-sum-exp, which the backward reads. Either way
 it first checks what the kernels take: float32 or bf16 q, k, v of one
 type, q (B, S, H, hd) and k, v (B, S, G, hd) with G dividing H, hd in
 ``autotune.FLASH_HEAD_DIMS`` (a multiple of 16 from 16 to 128), the head
 dim contiguous, and on the card what the kernels' TMA loads need
 (``tma_violation``: of q, k and v in bf16, of k and v in float32, whose q
-is read by plain loads). Other strides are read as they are: nothing is
-transposed or copied.
+is read by plain loads; the bf16 backward's of q, k, v, o and dO, the
+float32 backward reads with plain loads). Other strides are read as they
+are: nothing is transposed or copied.
 
 ``f32_layout`` and ``f32_schedule`` state, in Python, how the float32
 kernel packs the query heads of a KV head into a block and which K/V
@@ -36,7 +39,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _argtypes(n_tiles: int) -> tuple:
     """ctypes argument types of a flash C entry with ``n_tiles`` tile
     constants."""
-    return ((ctypes.c_void_p,) * 4                      # q, k, v, o
+    return ((ctypes.c_void_p,) * 5                      # q, k, v, o, lse (None: none)
             + (ctypes.c_int,) * (5 + n_tiles)            # B, S, H, G, hd, tile constants
             + (ctypes.POINTER(ctypes.c_longlong),)       # 12 strides
             + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
@@ -86,7 +89,7 @@ def tma_strides(shape: Sequence[int], strides: Sequence[int]) -> tuple:
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tma: bool = True) -> None:
     """Raise on anything the kernels do not take; ``tma`` False leaves out
-    the TMA checks (the backward kernels read with plain loads)."""
+    the TMA checks (the float32 backward kernels read with plain loads)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, hd)")
     B, S, H, hd = q.shape
@@ -147,10 +150,13 @@ def f32_schedule(S: int, window: int, rep: int) -> list:
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None, return_lse: bool = False):
     """Causal attention of q (B, S, H, hd) over k, v (B, S, G, hd); query
     head h reads KV head h // (H // G). ``window`` None or <= 0 is global;
-    ``softcap`` None is none. Returns (B, S, H, hd) in q's dtype.
+    ``softcap`` None is none. Returns (B, S, H, hd) in q's dtype; with
+    ``return_lse``, (o, lse): lse (B, H, S) float32 (float64 for float64
+    CPU tensors), each row's log-sum-exp of its visible scores, from the
+    same launch.
 
     CUDA tensors: one launch of the bf16 or the float32 kernel, counted in
     ``flash_attention.launches`` and in ``flash_attention.kernel_launches``
@@ -159,81 +165,111 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
     _check_inputs(q, k, v)
     w = int(window) if window is not None and int(window) > 0 else 0
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, window=w or None, softcap=softcap)
+        return ref.flash_attention_ref(q, k, v, window=w or None, softcap=softcap,
+                                       return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     B, S, H, hd = q.shape
     G = k.shape[2]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     dims = [tma_strides(t.shape, t.stride()) for t in (q, k, v, o)]
     strides = (ctypes.c_longlong * 12)(*(st for d in dims for st in d))
     entry, tiles = _ENTRIES[q.dtype]
     fn = _launch.c_entry("flash_attention.cu", entry, _argtypes(len(tiles)))
     _launch.call(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, S, H, G, hd, *tiles, strides, w, hd ** -0.5,
-                 0.0 if softcap is None else float(softcap))
+                 None if lse is None else lse.data_ptr(), B, S, H, G, hd, *tiles, strides, w,
+                 hd ** -0.5, 0.0 if softcap is None else float(softcap))
     flash_attention.launches += 1
     flash_attention.kernel_launches[_KERNEL_OF[q.dtype]] += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 _KERNEL_OF = {torch.bfloat16: "bf16", torch.float32: "float32"}
 flash_attention.launches = 0
 flash_attention.kernel_launches = {"bf16": 0, "float32": 0}
 
-# CUDA kernels one backward call launches: row statistics, dK and dV, dQ
-BWD_KERNELS = ("flash_bwd_stats_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10                       # q k v o do dq dk dv lse dsum
-                 + (ctypes.c_int,) * 9                          # B S H G hd bf16 tiles
+# CUDA kernels one backward call launches, by dtype: the D pass, dK and dV,
+# dQ (bf16 on the tensor cores, float32 in FFMA)
+BWD_KERNELS = {
+    "bf16": ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
+    "float32": ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+}
+# the backward's C entry and tile constants, by dtype
+_BWD_ENTRIES = {
+    torch.bfloat16: ("repro_flash_attention_bwd_bf16", (
+        autotune.FLASH_BWD_TC_BLOCK_ROWS, autotune.FLASH_BWD_TC_TILE_ROWS,
+        autotune.FLASH_BWD_TC_STAGES)),
+    torch.float32: ("repro_flash_attention_bwd", (
+        autotune.FLASH_BWD_BLOCK_Q, autotune.FLASH_BWD_BLOCK_K, autotune.FLASH_BWD_THREADS)),
+}
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 11          # q k v o lse do dq dk dv lse2 dsum
+                 + (ctypes.c_int,) * 9             # B S H G hd, 3 tile constants, stat_s
                  + (ctypes.POINTER(ctypes.c_longlong),)         # 24 strides
                  + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
                  + (ctypes.c_void_p,))                          # stream
 
 
-def flash_attention_bwd(q, k, v, o, do, *, window: Optional[int] = None,
+def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
                         softcap: Optional[float] = None):
     """The gradient of ``flash_attention``: (dq, dk, dv) for q (B, S, H,
-    hd), k, v (B, S, G, hd), the forward's output ``o`` and the gradient
-    ``do`` of the loss in it (both like q), each gradient in its input's
-    dtype. Takes what the forward takes (dtype, head dim, GQA), with no
-    TMA alignment rule: the backward kernels read with plain loads.
+    hd), k, v (B, S, G, hd), the forward's output ``o``, its row
+    log-sum-exp ``lse`` (B, H, S) (``flash_attention(..., return_lse=True)``)
+    and the gradient ``do`` of the loss in o (o and do like q), each
+    gradient in its input's dtype. Takes what the forward takes (dtype,
+    head dim, GQA); in bf16 on the card also what the TMA loads need, of q,
+    k, v, o and do (``tma_violation``; raises, no other path).
 
-    CUDA tensors: one call of ``csrc/flash_attention_bwd.cu``'s C entry,
-    which launches the three ``BWD_KERNELS`` in order (float32 scratch for
-    each row's log-sum-exp and D), counted in
+    CUDA tensors: one call of ``csrc/flash_attention_bwd.cu``'s C entry of
+    the dtype, which launches its three ``BWD_KERNELS`` in order (float32
+    scratch for each row's lse in base 2 and D = rowsum(do o), padded to
+    whole FLASH_BWD_TC_BLOCK_ROWS blocks), counted in
     ``flash_attention_bwd.launches`` and under the dtype's name in
     ``flash_attention_bwd.kernel_launches``. CPU tensors:
     ``ref.flash_attention_bwd_ref``.
     """
-    _check_inputs(q, k, v, tma=False)
+    tma = q.device.type == "cuda" and q.dtype == torch.bfloat16
+    _check_inputs(q, k, v, tma=tma)
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not match "
                              f"q {tuple(q.shape)} {q.dtype} on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim is not contiguous")
+        why = tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr()) if tma else None
+        if why is not None:
+            raise ValueError(f"{name}: the {t.dtype} kernel cannot read it: {why}")
+    B, S, H, hd = q.shape
+    want = (B, H, S)
+    if (tuple(lse.shape) != want or lse.dtype != ref._acc_dtype(q.dtype)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on {lse.device} is not a "
+                         f"contiguous {ref._acc_dtype(q.dtype)} {want} on {q.device}")
     w = int(window) if window is not None and int(window) > 0 else 0
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, window=w or None, softcap=softcap)
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=w or None,
+                                           softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
-    B, S, H, hd = q.shape
     G = k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    rows = autotune.FLASH_BWD_TC_BLOCK_ROWS
+    stat_s = -(-S // rows) * rows
+    lse2, dsum = torch.empty((2, B * H, stat_s), dtype=torch.float32, device=q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
-    strides = (ctypes.c_longlong * 24)(*(st for t in tensors for st in t.stride()[:3]))
-    fn = _launch.c_entry("flash_attention_bwd.cu", "repro_flash_attention_bwd", _BWD_ARGTYPES)
-    _launch.call(fn, q.device, *(t.data_ptr() for t in tensors), lse.data_ptr(),
-                 dsum.data_ptr(), B, S, H, G, hd, int(q.dtype == torch.bfloat16),
-                 autotune.FLASH_BWD_BLOCK_Q, autotune.FLASH_BWD_BLOCK_K,
-                 autotune.FLASH_BWD_THREADS, strides, w, hd ** -0.5,
+    strides = (ctypes.c_longlong * 24)(*(st for t in tensors
+                                         for st in tma_strides(t.shape, t.stride())))
+    entry, tiles = _BWD_ENTRIES[q.dtype]
+    fn = _launch.c_entry("flash_attention_bwd.cu", entry, _BWD_ARGTYPES)
+    _launch.call(fn, q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, lse2,
+                                                        dsum)),
+                 B, S, H, G, hd, *tiles, stat_s, strides, w, hd ** -0.5,
                  0.0 if softcap is None else float(softcap))
+    name = _KERNEL_OF[q.dtype]
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.kernel_launches[_KERNEL_OF[q.dtype]] += len(BWD_KERNELS)
+    flash_attention_bwd.kernel_launches[name] += len(BWD_KERNELS[name])
     return dq, dk, dv
 
 

@@ -216,14 +216,15 @@ def proj_sortscan(z, a, mask, c, *, tiling=None):
     return _ss.proj_sortscan(z, a, mask, c, row_block=cfg.row_block)
 
 
-def flash_attention(q, k, v, *, window=None, softcap=None):
+def flash_attention(q, k, v, *, window=None, softcap=None, return_lse=False):
     """Causal GQA attention: the CUDA kernel on CUDA tensors, its plain
-    version on CPU tensors (``kernels.flash_attention``)."""
-    return _fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    version on CPU tensors (``kernels.flash_attention``); with
+    ``return_lse``, (o, lse)."""
+    return _fa.flash_attention(q, k, v, window=window, softcap=softcap, return_lse=return_lse)
 
 
-def flash_attention_bwd(q, k, v, o, do, *, window=None, softcap=None):
-    """The gradient (dq, dk, dv) of ``flash_attention``: the three backward
-    kernels on CUDA tensors, their plain version on CPU tensors
-    (``kernels.flash_attention.flash_attention_bwd``)."""
-    return _fa.flash_attention_bwd(q, k, v, o, do, window=window, softcap=softcap)
+def flash_attention_bwd(q, k, v, o, lse, do, *, window=None, softcap=None):
+    """The gradient (dq, dk, dv) of ``flash_attention`` from its output and
+    row log-sum-exp: the three backward kernels on CUDA tensors, their
+    plain version on CPU tensors (``kernels.flash_attention.flash_attention_bwd``)."""
+    return _fa.flash_attention_bwd(q, k, v, o, lse, do, window=window, softcap=softcap)

@@ -133,7 +133,8 @@ def _visible(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
     return m
 
 
-def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 256):
+def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 256,
+                        return_lse: bool = False):
     """Causal GQA attention, blockwise over query blocks (the port of
     ``repro.models.attention.attention``, the flash kernel's oracle).
 
@@ -143,7 +144,9 @@ def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 25
     window, with masked scores at -1e30; softmax over all S keys; the
     output in q's dtype. Only a (q_block, S) score tile per head is alive at
     once. A ragged last block (S not a multiple of ``q_block``) is taken as
-    it is.
+    it is. With ``return_lse`` it returns (o, lse): lse (B, H, S) is each
+    row's log-sum-exp of its visible scores, in the computing type (what
+    both forward kernels write for the backward).
     """
     B, S, H, hd = q.shape
     G = k.shape[2]
@@ -154,6 +157,7 @@ def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 25
     kf, vf = k.to(acc), v.to(acc)
     kpos = torch.arange(S, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=acc, device=q.device) if return_lse else None
     for q0 in range(0, S, bq):
         qi = q[:, q0:q0 + bq].to(acc)
         n = qi.shape[1]
@@ -161,55 +165,67 @@ def flash_attention_ref(q, k, v, *, window=None, softcap=None, q_block: int = 25
         s = torch.einsum("bqgrd,bkgd->bgrqk", qi.reshape(B, n, G, rep, hd), kf) * scale
         if softcap is not None:
             s = softcap * torch.tanh(s / softcap)
-        p = torch.softmax(s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED), dim=-1)
+        s = s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED)
+        p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrqk,bkgd->bqgrd", p, vf)
         out[:, q0:q0 + n] = o.reshape(B, n, H, hd).to(q.dtype)
-    return out
+        if return_lse:
+            lse[:, :, q0:q0 + n] = torch.logsumexp(s, dim=-1).reshape(B, H, n)
+    return (out, lse) if return_lse else out
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, window=None, softcap=None,
-                            q_block: int = 256):
-    """The gradient of ``flash_attention_ref``: (dq, dk, dv) of the loss
-    whose gradient in the output ``o`` is ``do`` (the plain version of the
-    backward kernels in ``csrc/flash_attention_bwd.cu``).
-
-    Blockwise over query blocks, step by step the formulas the kernels
-    implement, in float32 (float64 for float64 inputs): the row statistics
-    (each row's max and log-sum-exp over its visible keys, recomputed from
-    q and k); D = rowsum(do * o); P = exp(s_c - lse) (masked scores at
-    -1e30, so P is exactly 0 there); dV = P^T dO; dP = dO V^T; dS = P (dP -
-    D), times the softcap's derivative 1 - (s_c / c)^2; dQ = dS K hd^-0.5
-    and dK = dS^T Q hd^-0.5, dK and dV summed over the rep query heads of
-    each KV head. Each gradient comes back in its input's dtype.
-    """
+def _bwd_blocks(q, k, v, o, lse, do, window, softcap, q_block):
+    """The backward's query blocks: for each, (q0, n, qi, doi, kf, vf, s,
+    t, lse_i, d_row) in the computing type, the block's raw scaled scores
+    s (B, G, rep, n, S), their tanh t (None without a softcap), its lse and
+    D = rowsum(do o), both (B, G, rep, n, 1)."""
     B, S, H, hd = q.shape
     G = k.shape[2]
     rep = H // G
     bq = min(q_block, S)
-    scale = hd ** -0.5
     acc = _acc_dtype(q.dtype)
     kf, vf = k.to(acc), v.to(acc)
-    kpos = torch.arange(S, device=q.device)
-    dq = torch.empty(q.shape, dtype=acc, device=q.device)
-    dk = torch.zeros(k.shape, dtype=acc, device=q.device)
-    dv = torch.zeros(v.shape, dtype=acc, device=q.device)
     for q0 in range(0, S, bq):
         qi = q[:, q0:q0 + bq].to(acc)
         n = qi.shape[1]
         qi = qi.reshape(B, n, G, rep, hd)
         oi = o[:, q0:q0 + n].to(acc).reshape(B, n, G, rep, hd)
         doi = do[:, q0:q0 + n].to(acc).reshape(B, n, G, rep, hd)
-        qpos = q0 + torch.arange(n, device=q.device)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qi, kf) * scale
-        if softcap is not None:
-            t = torch.tanh(s / softcap)
-            s = softcap * t
-        s = s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED)
-        # the row statistics: max and log-sum-exp over the visible keys
-        mx = s.amax(-1, keepdim=True)
-        lse = mx + torch.log(torch.exp(s - mx).sum(-1, keepdim=True))
-        p = torch.exp(s - lse)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qi, kf) * hd ** -0.5
+        t = None if softcap is None else torch.tanh(s / softcap)
+        lse_i = lse[:, :, q0:q0 + n].to(acc).reshape(B, G, rep, n, 1)
         d_row = (doi * oi).sum(-1).permute(0, 2, 3, 1)[..., None]    # (B, G, rep, n, 1)
+        yield q0, n, qi, doi, kf, vf, s, t, lse_i, d_row
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, window=None, softcap=None,
+                            q_block: int = 256):
+    """The gradient of ``flash_attention_ref``: (dq, dk, dv) of the loss
+    whose gradient in the output ``o`` is ``do``, with ``lse`` (B, H, S)
+    the forward's row log-sum-exp (the plain version of the backward
+    kernels in ``csrc/flash_attention_bwd.cu``).
+
+    Blockwise over query blocks, step by step the formulas the kernels
+    implement, in float32 (float64 for float64 inputs): D = rowsum(do *
+    o); P = exp(s_c - lse) (masked scores at -1e30, so P is exactly 0
+    there); dV = P^T dO; dP = dO V^T; dS = P (dP - D), times the softcap's
+    derivative 1 - (s_c / c)^2; dQ = dS K hd^-0.5 and dK = dS^T Q hd^-0.5,
+    dK and dV summed over the rep query heads of each KV head. Each
+    gradient comes back in its input's dtype.
+    """
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5
+    acc = _acc_dtype(q.dtype)
+    kpos = torch.arange(S, device=q.device)
+    dq = torch.empty(q.shape, dtype=acc, device=q.device)
+    dk = torch.zeros(k.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(v.shape, dtype=acc, device=q.device)
+    for q0, n, qi, doi, kf, vf, s, t, lse_i, d_row in _bwd_blocks(q, k, v, o, lse, do, window,
+                                                                 softcap, q_block):
+        qpos = q0 + torch.arange(n, device=q.device)
+        if softcap is not None:
+            s = softcap * t
+        p = torch.exp(s.masked_fill(~_visible(qpos, kpos, window), ATTN_MASKED) - lse_i)
         dv += torch.einsum("bgrqk,bqgrd->bkgd", p, doi)
         dp = torch.einsum("bqgrd,bkgd->bgrqk", doi, vf)
         ds = p * (dp - d_row)
@@ -218,4 +234,44 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, window=None, softcap=None,
         dq[:, q0:q0 + n] = (torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale).reshape(
             B, n, H, hd)
         dk += torch.einsum("bgrqk,bqgrd->bkgd", ds, qi) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_bwd_emulation(q, k, v, o, lse, do, *, window=None, softcap=None,
+                                  q_block: int = 256):
+    """The bf16 backward kernels' arithmetic in plain torch (the tests hold
+    the kernels' bar with it; nothing on the main path calls it): float32
+    scores of the (bf16) inputs; u = tanh(s hd^-0.5 / c) with a softcap c,
+    else s hd^-0.5; p = 2^(c' u - lse log2 e) with c' = c log2 e, or log2 e;
+    dS = p (dP - D) (1 - u^2 with a softcap); P^T and dS^T rounded once to
+    bf16 before the products dV = P^T dO, dK = dS^T Q and dQ = dS K, which
+    sum in float32; dK and dQ scaled by hd^-0.5 after the sums, every
+    gradient rounded once to the inputs' dtype.
+    """
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5
+    kpos = torch.arange(S, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    c = softcap * LOG2E if softcap is not None else LOG2E
+    for q0, n, qi, doi, kf, vf, s, t, lse_i, d_row in _bwd_blocks(q, k, v, o, lse, do, window,
+                                                                 softcap, q_block):
+        qpos = q0 + torch.arange(n, device=q.device)
+        u = t if softcap is not None else s
+        p = torch.exp2(u * c - lse_i * LOG2E)
+        p = p.masked_fill(~_visible(qpos, kpos, window), 0.0)
+        dp = torch.einsum("bqgrd,bkgd->bgrqk", doi, vf)
+        ds = p * (dp - d_row)
+        if softcap is not None:
+            ds = ds * (1.0 - u * u)
+        p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+        dv += torch.einsum("bgrqk,bqgrd->bkgd", p16, doi)
+        dq[:, q0:q0 + n] = (torch.einsum("bgrqk,bkgd->bqgrd", ds16, kf) * scale).reshape(
+            B, n, H, hd)
+        dk += torch.einsum("bgrqk,bqgrd->bkgd", ds16, qi)
+    dk = dk * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -26,35 +26,39 @@ from repro_torch.kernels import ref
 from repro_torch.models.layers import softcap
 
 
-def _forward(q, k, v, window, attn_softcap):
+def _forward(q, k, v, window, attn_softcap, return_lse=False):
     if q.device.type == "cuda":
-        return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap)
-    return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap)
+        return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap,
+                                   return_lse=return_lse)
+    return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap,
+                                   return_lse=return_lse)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal attention with its gradient: forward as ``attention``;
-    backward (dq, dk, dv) from q, k, v and the saved output o, by the
-    backward kernels on a CUDA tensor and ``ref.flash_attention_bwd_ref``
+    """Causal attention with its gradient: forward as ``attention``, which
+    also writes each row's log-sum-exp (the same launch on the card);
+    backward (dq, dk, dv) from q, k, v, the saved output o and that lse, by
+    the backward kernels on a CUDA tensor and ``ref.flash_attention_bwd_ref``
     on a CPU tensor (which takes float64 too, for ``gradcheck``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, attn_softcap):
-        o = _forward(q, k, v, window, attn_softcap)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, window, attn_softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.window, ctx.attn_softcap = window, attn_softcap
         return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         w, cap = ctx.window, ctx.attn_softcap
         if q.device.type == "cuda":
-            dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do.contiguous(), window=w,
+            dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), window=w,
                                                  softcap=cap)
         else:
-            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do, window=w, softcap=cap)
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=w,
+                                                     softcap=cap)
         return dq, dk, dv, None, None
 
 

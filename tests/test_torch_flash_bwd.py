@@ -2,8 +2,8 @@
 
 ``ref.flash_attention_bwd_ref`` is the plain version of the backward
 kernels (``csrc/flash_attention_bwd.cu``): the same formulas step by step
-(row max and log-sum-exp recomputed from q and k, D = rowsum(dO o), P,
-dV, dP, dS with the softcap's derivative, dQ, dK, GQA sums). It is held
+from the forward's row log-sum-exp (D = rowsum(dO o), P, dV, dP, dS with
+the softcap's derivative, dQ, dK, GQA sums). It is held
 against autograd through the port's plain forward, against ``jax.vjp`` of
 the reference's ``repro.models.attention.attention`` on the same numpy
 inputs (the reference takes this gradient by autodiff), and, wired into
@@ -58,9 +58,10 @@ def test_bwd_ref_matches_autograd_of_the_plain_forward(shape, window, softcap):
     for dtype, tol in ((torch.float32, F32_RTOL_OF_MAX), (torch.float64, F64_RTOL_OF_MAX)):
         q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(shape, 1))
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        o = ref.flash_attention_ref(*qkv, window=window, softcap=softcap, q_block=64)
+        o, lse = ref.flash_attention_ref(*qkv, window=window, softcap=softcap, q_block=64,
+                                         return_lse=True)
         want = torch.autograd.grad(o, qkv, do)
-        got = ref.flash_attention_bwd_ref(q, k, v, o.detach(), do, window=window,
+        got = ref.flash_attention_bwd_ref(q, k, v, o.detach(), lse.detach(), do, window=window,
                                           softcap=softcap)
         for g, w in zip(got, want):
             assert g.dtype == dtype
@@ -78,8 +79,9 @@ def test_bwd_ref_matches_jax_vjp_of_the_reference(shape, window, softcap):
     o, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     t = [torch.from_numpy(a) for a in (q, k, v)]
-    got = ref.flash_attention_bwd_ref(*t, torch.from_numpy(np.array(o)), torch.from_numpy(do),
-                                      window=window, softcap=softcap)
+    _, lse = ref.flash_attention_ref(*t, window=window, softcap=softcap, return_lse=True)
+    got = ref.flash_attention_bwd_ref(*t, torch.from_numpy(np.array(o)), lse,
+                                      torch.from_numpy(do), window=window, softcap=softcap)
     for g, wnt in zip(got, want):
         _close(g.numpy(), np.asarray(wnt), F32_RTOL_OF_MAX)
 
@@ -104,39 +106,47 @@ def test_attention_takes_the_function_only_for_a_gradient():
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
     assert torch.equal(o.detach(), plain)  # the CPU forward's values do not change
     (dq,) = torch.autograd.grad(o, q, do)
-    want = ref.flash_attention_bwd_ref(q.detach(), k, v, plain, do, window=8, softcap=50.0)[0]
+    lse = ref.flash_attention_ref(q.detach(), k, v, window=8, softcap=50.0, return_lse=True)[1]
+    want = ref.flash_attention_bwd_ref(q.detach(), k, v, plain, lse, do, window=8,
+                                       softcap=50.0)[0]
     assert torch.equal(dq, want)
 
 
 def test_wrapper_on_the_cpu_is_the_plain_version():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 40, 4, 2, 16), 5))
-    o = ops.flash_attention(q, k, v, window=10)
-    got = ops.flash_attention_bwd(q, k, v, o, do, window=10)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, window=10)
+    o, lse = ops.flash_attention(q, k, v, window=10, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, window=10)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=10)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     # window <= 0 is global, as in the forward
-    for g, w in zip(ops.flash_attention_bwd(q, k, v, o, do, window=0),
-                    ref.flash_attention_bwd_ref(q, k, v, o, do)):
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    for g, w in zip(ops.flash_attention_bwd(q, k, v, o, lse, do, window=0),
+                    ref.flash_attention_bwd_ref(q, k, v, o, lse, do)):
         assert torch.equal(g, w)
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs((1, 16, 4, 2, 16), 6))
-    o = ref.flash_attention_ref(q, k, v)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_bwd(q[..., :8], k[..., :8], v[..., :8], o[..., :8], do[..., :8])
+        fa.flash_attention_bwd(q[..., :8], k[..., :8], v[..., :8], o[..., :8], lse, do[..., :8])
     with pytest.raises(ValueError, match="does not match"):
-        fa.flash_attention_bwd(q, k, v, o[:, :8], do)
+        fa.flash_attention_bwd(q, k, v, o[:, :8], lse, do)
     with pytest.raises(ValueError, match="does not match"):
-        fa.flash_attention_bwd(q, k, v, o, do.double())
+        fa.flash_attention_bwd(q, k, v, o, lse, do.double())
     with pytest.raises(TypeError):
-        fa.flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), do.double())
+        fa.flash_attention_bwd(q.double(), k.double(), v.double(), o.double(), lse.double(),
+                               do.double())
     with pytest.raises(ValueError, match="KV heads"):
-        fa.flash_attention_bwd(q[:, :, :3], k, v, o[:, :, :3], do[:, :, :3])
+        fa.flash_attention_bwd(q[:, :, :3], k, v, o[:, :, :3], lse, do[:, :, :3])
     with pytest.raises(ValueError, match="not contiguous"):
         t = do.transpose(1, 3).contiguous().transpose(1, 3)
-        fa.flash_attention_bwd(q, k, v, o, t)
+        fa.flash_attention_bwd(q, k, v, o, lse, t)
+    # the lse: (B, H, S), the computing type, contiguous
+    for bad in (lse[:, :, :8], lse.double(), lse.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="lse"):
+            fa.flash_attention_bwd(q, k, v, o, bad, do)
 
 
 def test_bwd_ref_bf16_rounds_float32_gradients_once():
@@ -144,9 +154,10 @@ def test_bwd_ref_bf16_rounds_float32_gradients_once():
     gradient once, so it equals the float32 gradient of the same (bf16)
     values, rounded."""
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs((1, 64, 4, 2, 16), 7))
-    o = ref.flash_attention_ref(q, k, v, softcap=50.0)
-    got = ref.flash_attention_bwd_ref(q, k, v, o, do, softcap=50.0)
-    want = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), softcap=50.0)
+    o, lse = ref.flash_attention_ref(q, k, v, softcap=50.0, return_lse=True)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, softcap=50.0)
+    want = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                       softcap=50.0)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert torch.equal(g, w.to(torch.bfloat16))

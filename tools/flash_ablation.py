@@ -15,7 +15,9 @@ order; each time the median of 20 calls between CUDA events). With
 ``--parent DIR`` (a checkout of another commit) its flash_attention.cu is
 built too, as the bf16 variant "parent", so the two bf16 kernels are timed
 in turns in one call (change, parent, parent, change); ``--only parent``
-builds and times those two alone.
+builds and times those two alone. The parent's C entries must take the
+row log-sum-exp pointer beside o, and it must include csrc/hopper.cuh, as
+these do.
 
 bf16 variants (the tensor-core kernel):
 
@@ -164,15 +166,13 @@ def bf16_variants(src: str) -> dict:
             "      for (int i = 0; i < kBlockK / 2; ++i) s[i] *= 1e-3f;\n"
             "    };\n") + src[gemm_b:],
         "softmax_only": _edit(src, [
-            ("    wgmma_ss_n128(s, da, db, kk > 0);\n",
+            ("    wgmma_ss_k<kBlockK>(s, da, db, kk > 0);\n",
              "    if (kk == 0) {\n"
              "      for (int i = 0; i < kBlockK / 2; ++i)\n"
              "        s[i] = __uint_as_float(0x3c000000u | (static_cast<uint32_t>(db) & 0xffu)) * i;\n"
              "    }\n"),
-            ("      wgmma_rs_n128(acc, a, db);\n",
-             "      acc[kk] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);\n"),
-            ("      wgmma_rs_n64(acc, a, db);\n",
-             "      acc[kk] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);\n")]),
+            ("    wgmma_rs_mn<HDP>(acc, a, db);\n",
+             "    acc[kk] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3]);\n")]),
     }
     v["softmax_only_no_exp"] = _edit(v["softmax_only"], [(exp, no_exp)])
     return v
@@ -214,7 +214,9 @@ def main() -> int:
         cu, lib = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT, f"{name}.so")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = (subprocess.Popen([nvcc_path(), *build.NVCC_FLAGS, "-o", lib, cu],
+        # the variants include csrc/hopper.cuh from the sources' directory
+        procs[name] = (subprocess.Popen([nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                                         "-o", lib, cu],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
     fns, ptxas = {torch.bfloat16: {}, torch.float32: {}}, {}
