@@ -145,14 +145,16 @@ Phases, each printing one JSON line:
            prefill's).
   train    the training slice. First the flash backward kernels
            (csrc/flash_attention_bwd.cu; bf16 on wgmma and TMA, float32 in
-           FFMA, both fed the forward's lse) against their plain version
+           FFMA on register microtiles fed by a TMA ring, both fed the
+           forward's lse) against their plain version
            on the card (bf16: against the emulation of its arithmetic,
            ref.flash_attention_bwd_emulation), in float32 and bf16, at
            BWD_SMALL_CASES and at stablelm-3b's training shape and
            gemma2-27b's global layer (with and without its 4096 window),
            two launches bit for bit, the forward's o with and without the
            lse bit for bit, with times, the bound and SDPA's backward at
-           the last three (and, in bf16 at stablelm-3b's shape, SDPA's
+           the last three (float32 rows also the seven-product FFMA time,
+           computed from the shape: what its design can reach; and, in bf16 at stablelm-3b's shape, SDPA's
            gradient's distance from the float32 plain one beside the
            emulation's).
            Then the train path: stablelm-3b at full width and 2 layers,
@@ -535,8 +537,10 @@ BWD_TIMING_REPS = 5
 # the plain gradient takes 120-200 ms a call at the path shapes
 BWD_PLAIN_TIMING_REPS = 2
 # the five products of the gradient (QK^T, dO V^T, P^T dO, dS^T Q, dS K),
-# each 2 hd FLOPs a head a visible pair
+# each 2 hd FLOPs a head a visible pair; the kernels run seven (QK^T and
+# dO V^T once for dK/dV and once for dQ: no atomics)
 BWD_PRODUCTS = 5
+KERNEL_BWD_PRODUCTS = 7
 # The slice: stablelm-3b at full width. First 2 of its 32 layers, float32
 # params and compute, on one row of 4096 tokens of batch_at(step 0): loss
 # and backward through the kernels against the same through the plain
@@ -2207,12 +2211,13 @@ def lm_families_phase(torch, dev) -> dict:
             "bf16_flash_launches": {a: ln["bf16_flash_launches"] for a, ln in lines.items()}}
 
 
-def flash_bwd_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s):
+def flash_bwd_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s, products=BWD_PRODUCTS):
     """The least time the H100 could take for attention's gradient: the
     BWD_PRODUCTS products, 2 hd FLOPs a head a visible pair each, at
     ``ops_per_s``, or one read of q, k, v, o, dO and one write of dq, dk,
-    dv at the HBM rate; the larger."""
-    t_ops = BWD_PRODUCTS * 2 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
+    dv at the HBM rate; the larger. ``products`` KERNEL_BWD_PRODUCTS gives
+    the time of the kernels' own products at that rate instead."""
+    t_ops = products * 2 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
     t_bytes = elem_bytes * B * S * hd * (4 * H + 4 * G) / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -2349,6 +2354,9 @@ def train_kernel_checks(torch, dev) -> dict:
             row.update({"dtype": name, "ms": device_ms(run, BWD_TIMING_REPS),
                         "plain_ms": device_ms(plain, BWD_PLAIN_TIMING_REPS),
                         "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(S, window)})
+            if not bf16:  # the seven products at the float32 FMA rate
+                row["ffma7_ms"] = flash_bwd_bound(B, S, H, G, hd, window, 4, FP32_OPS_PER_S,
+                                                  KERNEL_BWD_PRODUCTS)[0]
             if cap is not None:  # the kernel on the library call's function
                 o_nc, lse_nc = ops.flash_attention(q, k, v, window=window, return_lse=True)
                 row["kernel_without_softcap_ms"] = device_ms(
@@ -3549,6 +3557,17 @@ def smoke(torch) -> dict:
     bwd_lib = build.library_path("flash_attention_bwd.cu")
     flash_bwd_build = flash_bwd_kernels(ptxas_by_kernel(bwd_lib.with_suffix(".log").read_text()),
                                         sass_ops_by_kernel(str(bwd_lib)))
+    # each float32 backward instantiation's dynamic shared memory and ring
+    # stages, as its C entry computes them
+    layout = build.library("flash_attention_bwd.cu").repro_flash_attention_bwd_f32_layout
+    layout.argtypes, layout.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    ffma_bwd = [f"{k}<{hd}>" for hd in autotune.FLASH_HEAD_DIMS
+                for k in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")]
+    for label in ffma_bwd:
+        hd = int(label.split("<")[1].rstrip(">"))
+        if label in flash_bwd_build:
+            flash_bwd_build[label].update({"smem_bytes": layout(hd, int("dq_kernel" in label)),
+                                           "stages": layout(hd, 2)})
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build,
           "flash_bwd_kernels": flash_bwd_build})
@@ -3561,11 +3580,16 @@ def smoke(torch) -> dict:
                  for k in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")]
     check(all(k in flash_bwd_build for k in wgmma_bwd),
           f"bf16 backward instantiations built: {sorted(flash_bwd_build)}")
+    # every float32 dK/dV and dQ instantiation is fed by TMA
+    check(all(k in flash_bwd_build for k in ffma_bwd),
+          f"float32 backward instantiations built: {sorted(flash_bwd_build)}")
     for label, ent in flash_bwd_build.items():
         check(ent["stack_bytes"] == ent["spill_store_bytes"] == ent["spill_load_bytes"]
               == ent["LDL"] == ent["STL"] == 0, f"{label} spills or touches local memory: {ent}")
         check(label not in wgmma_bwd or (ent["HGMMA"] > 0 and ent["UTMALDG"] > 0),
               f"{label} is not on wgmma fed by TMA: {ent}")
+        check(label not in ffma_bwd or ent["UTMALDG"] > 0,
+              f"{label} is not fed by TMA: {ent}")
     # the sortscan kernels of L <= 256 work in registers and shuffles: no
     # shared memory, no barrier; no projection kernel spills at any width
     # or touches local memory

@@ -97,12 +97,20 @@ FLASH_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 FLASH_TC_BLOCK_Q = 128
 FLASH_TC_BLOCK_K = 128
 FLASH_TC_STAGES = 2
-# The float32 flash backward (csrc/flash_attention_bwd.cu, namespace ffma):
-# query rows and keys per tile and threads per block (a 16 x 16 grid of
-# 4 x 4 score microtiles). Fixed; its C entry refuses others.
-FLASH_BWD_BLOCK_Q = 64
-FLASH_BWD_BLOCK_K = 64
-FLASH_BWD_THREADS = 256
+# The float32 flash backward (csrc/flash_attention_bwd.cu, namespace ffma:
+# FFMA on register microtiles fed by a TMA ring, the float32 forward's
+# design): a block's rows (keys for dK/dV; for dQ query rows (position,
+# head), packed as the forward packs them), a streamed tile's rows (queries
+# for dK/dV, keys for dQ), the streamed tiles in flight where both kernels'
+# tiles fit the 227 KB a block may opt in to (hd <= 96; one stage at hd 112
+# and 128), and a thread's microtile: block rows x streamed rows of a score
+# tile (the same block rows of its accumulators). Fixed; its C entry
+# refuses others.
+FLASH_BWD_BLOCK_ROWS = 128
+FLASH_BWD_TILE_ROWS = 64
+FLASH_BWD_STAGES = 2
+FLASH_BWD_MICRO_ROWS = 8
+FLASH_BWD_MICRO_COLS = 4
 # The bf16 flash backward (the same file, namespace tc: wgmma fed by TMA):
 # a block's rows (keys for dK/dV, queries for dQ; two consumer warpgroups
 # of 64), a streamed tile's rows (queries for dK/dV, keys for dQ), and the

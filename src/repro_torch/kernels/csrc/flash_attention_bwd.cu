@@ -24,8 +24,9 @@
 // Bound on the H100. Five causal-halved products of 2 S^2/2 hd H B FLOPs
 // each (QK^T, dO V^T, P^T dO, dS^T Q, dS K): at stablelm-3b's training
 // shape (4, 4096, 32, 32, 80) 8.6e11 FLOPs, 0.87 ms at the bf16 tensor-core
-// peak and 12.8 ms at the float32 FMA peak, far above the bytes (q, k, v,
-// o, dO read once, dq, dk, dv written once: 0.03 ms in bf16).
+// peak and 12.8 ms at the float32 FMA peak (the kernels run seven
+// products, QK^T and dO V^T twice: 17.9 ms in FFMA), far above the bytes
+// (q, k, v, o, dO read once, dq, dk, dv written once: 0.03 ms in bf16).
 //
 // One C entry per dtype launches three kernels in order on one stream:
 //
@@ -37,8 +38,9 @@
 //      and V tile and loops over the rep query heads of the KV head and the
 //      query tiles that see the key tile (at or after it, within the
 //      window); dK and dV stay in registers and are written once.
-//   3. dQ, one block per (query tile, head, batch): it holds its Q and dO
-//      tile and loops over the key tiles its rows see.
+//   3. dQ, one block per (query tile, head, batch) in bf16, per packed
+//      tile of the rep query heads of a KV head in float32: it holds its Q
+//      and dO rows and loops over the key tiles its rows see.
 //
 // bf16: kernels 2 and 3 on the tensor cores (namespace tc), fed by TMA, for
 // sm_90a: the forward's machinery (flash_attention.cu) on the backward's
@@ -74,20 +76,62 @@
 // memory at hd 128: dK/dV K and V 64 KB + 2 stages x (Q + dO 32 KB + 512 B);
 // dQ Q and dO 64 KB + 2 stages x (K + V 32 KB).
 //
-// float32: kernels 2 and 3 in FFMA on the CUDA cores (namespace ffma), the
-// forward's lse in natural-log units read by plain loads. kBlockQ = kBlockK
-// = 64 rows a tile, 256 threads as a 16 x 16 grid (ty, tx). Tiles sit in
-// shared memory as float rows of hd + 4 (the pad makes the eight rows of a
-// quarter warp's float4 loads fall on distinct banks at every hd that is a
-// multiple of 16). A score tile (s and dP) is computed as 4 x 4
-// microtiles: rows ty + 16 i, columns tx + 16 j, each a dot product over hd
-// taken in float4 steps (8 FMAs a 16-byte load). P and dS go through shared
-// memory (kernel 3 stores dS transposed), and the accumulating products are
-// outer products over the tile's rows: a thread owns 4 consecutive rows
-// (4 ty + i) of dK / dV / dQ and the column groups tx, tx + 16, ... of 4
-// floats. Every gradient element is summed by one thread in a fixed order.
-// Shared memory at hd 128: kernel 2 holds K, V, Q, dO (132 KB), P and dS
-// (34 KB); kernel 3 K, V, Q, dO and dS^T.
+// float32: kernels 2 and 3 in FFMA on the CUDA cores (namespace ffma), on
+// the float32 forward's design (flash_attention.cu, namespace f32): register
+// microtiles fed by a TMA ring, warps that own their rows, no block barrier
+// in the tile loop. A block is 8 warps (256 threads) over kBlockRows = 128
+// rows of its own tile, loaded once; the streamed tiles of kTileRows = 64
+// rows go through a ring of ring_of(hd) stages by cp.async.bulk.tensor on
+// 4-D tensor maps (hd, S, heads, B) in boxes of 32 float32 columns x 64 rows
+// with the 128-byte swizzle (rows past S and columns past hd read as zero),
+// each operand with a full and an empty mbarrier a stage. Thread 0 issues
+// every load (a ninth, producer warp would cap a thread's registers below
+// what the two accumulators need) and asks for tile t + 1 in turn t: with
+// two stages as the turn starts, with one as soon as every warp is done
+// with tile t's operand, each operand's last use in a turn placed one
+// product before its first use in the next. A warp owns 16 rows; a thread
+// holds an 8 x 4 score microtile (block rows row0 + 2 i, streamed rows
+// cl + 16 t; 16 shared-memory wavefronts a warp per 128 FMAs, every load
+// conflict-free in the swizzled boxes; the chunk loop left rolled) and the
+// same 8 rows of its accumulators in hd / 16 columns (float4 groups, then a
+// float2 and a float one: at hd 80 every lane holds a float4 and a float,
+// 5 columns). Each warp passes its P^T, dS^T or dS
+// through its own 16 x 64 tile in shared memory, synced by __syncwarp, into
+// the accumulating product (the forward's P V).
+//   dK/dV, one block per (128 keys, KV head, batch): keys take the
+//     forward's query role. Per streamed tile of 64 queries (for each of the
+//     rep query heads of the KV head, the query tiles that see the block):
+//     S^T = K Q^T, u (the softcap's tanh on the forward's terms) kept in the
+//     lane's own slots of the warp tile; dP^T = V dO^T; P^T = 2^(c u - lse2)
+//     and dS^T = P^T (dP^T - D) (1 - u^2) once per pair; dK += dS^T Q
+//     through the warp tile (Q's last use: its stage is freed); dV += P^T
+//     dO (dO's). lse2 and D of the tile come with Q and dO by
+//     cp.async.bulk from the D pass's scratch.
+//   dQ, one block per 128 query rows packed as the forward packs them
+//     ((position, head) of the rep query heads of a KV head, f32_layout),
+//     so each K/V tile is read once for all of them; Q and dO loaded by
+//     each warp for its rows (plain loads into the swizzled layout), lse2
+//     and D in registers. Per K/V tile: dP = dO V^T (V freed), S = Q K^T,
+//     dS, dQ += dS K (K freed).
+// A warp skips the products of a tile none of its rows sees (it still
+// waits for the tile and frees it); the per-element mask runs only on tiles
+// that cross the diagonal, the window's edge or S. Both grids put the row
+// block in their slowest dimension, so the blocks with the most tiles start
+// first on every head. Seven products, every output element summed by one
+// thread in a fixed order and written once.
+// Budget, at hd 80 (three boxes a row, the last read in part) with two
+// stages: dK/dV K and V 96 KB + 2 x (Q and dO 48 KB + 512 B) + 8 warp tiles
+// 32 KB = 231496 bytes with the barriers and the alignment, dQ 230464; at
+// hd 112 and 128 (four boxes) two stages would need 256 KB, so one stage:
+// dK/dV 128 KB + 64.5 KB + 32 KB = 230952 bytes, dQ 230432. Registers: dK
+// and dV take 2 x 8 x hd / 16 = hd a thread (128 at hd 128); dP^T is
+// computed while u waits in shared memory, so a score microtile (32), its
+// operands (48) and the accumulators are the most live at once; P^T (32)
+// is held through dK's product. ptxas gives dK/dV 168 (hd 16 and 32) to 230
+// (hd 80) and 255 (hd 112, 128) registers and dQ 214 to 255, none spilling
+// (chip_smoke.py's build line holds the counts and refuses a spill or any
+// local memory); unrolling the score products' chunk loop made dK/dV spill
+// at hd 128 (tools/flash_ablation.py --bwd's variants).
 #include "hopper.cuh"
 
 #include <math.h>
@@ -161,187 +205,284 @@ int launch_dsum(const Args& a, int hd, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: FFMA on the CUDA cores.
+// float32: FFMA on register microtiles, fed by a TMA ring.
 // ---------------------------------------------------------------------------
 namespace ffma {
 
-// Tile constants; kernels/autotune.py (FLASH_BWD_BLOCK_Q, FLASH_BWD_BLOCK_K,
-// FLASH_BWD_THREADS) passes them to the C entry, which refuses others.
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kSide = 16;   // the thread grid is kSide x kSide
-constexpr int kMicro = 4;   // a thread's microtile: kMicro x kMicro scores
-constexpr int kPad = 4;     // floats past each shared-memory row
-constexpr int kLdP = kBlockK + kPad;  // a row of P or dS (and of dS^T)
-static_assert(kBlockQ == kSide * kMicro && kBlockK == kSide * kMicro, "tile = grid x microtile");
-static_assert(kThreads == kSide * kSide, "one thread per (ty, tx)");
-static_assert(kBlockQ == kBlockK, "P, dS and dS^T share one row length");
+using hopper::align_1024;
+using hopper::bulk_load;
+using hopper::exp2_ftz;
+using hopper::Layout;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::Rows;
+using hopper::swizzled;
+using hopper::tanh_capped;
+using hopper::tma_load;
 
+// Tile constants; kernels/autotune.py (FLASH_BWD_BLOCK_ROWS,
+// FLASH_BWD_TILE_ROWS, FLASH_BWD_STAGES, FLASH_BWD_MICRO_ROWS,
+// FLASH_BWD_MICRO_COLS) passes them to the C entry, which refuses others.
+constexpr int kBlockRows = 128;  // a block's keys (dK/dV) or packed query rows (dQ)
+constexpr int kTileRows = 64;    // a streamed tile's queries (dK/dV) or keys (dQ)
+constexpr int kMaxRing = 2;      // streamed tiles in flight, where they fit (ring_of)
+constexpr int kMicroRows = 8;    // block rows of a thread's score microtile and accumulators
+constexpr int kMicroCols = 4;    // streamed rows of its score microtile
+constexpr int kHalf = 16;        // threads that share a block row: a half warp
+constexpr int kWarpRows = 2 * kMicroRows;           // block rows of a warp
+constexpr int kWarps = kBlockRows / kWarpRows;      // 8, two on each SM sub-partition
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowBytes = hopper::kSwizzleRow;     // one swizzled row of a box
+constexpr int kBoxCols = hopper::kF32BoxCols;       // float32 columns of a box
+constexpr int kBlockBox = kBlockRows * kRowBytes;   // one box of a block's tile
+constexpr int kTileBox = kTileRows * kRowBytes;     // one box of a streamed tile
+constexpr int kWRow = kTileRows * 4;                // a row of a warp's tile, in bytes
+constexpr int kWarpTile = kWarpRows * kWRow;        // a warp's P^T / dS^T (dS) tile
+constexpr int kSmemMax = 232448;                    // what a block may opt in to
+static_assert(kHalf * kMicroCols == kTileRows, "a half warp holds a streamed tile's rows");
+static_assert(kMicroRows == 8, "row positions pack into two words of bytes");
+static_assert(kWarpTile == kMicroRows * 32 * 16, "a warp's tile holds a float4 a lane a row");
+
+// Dynamic shared memory. dK/dV: K and V (the block's keys), `ring` stages
+// of Q and dO (a streamed tile each) and of their lse2 and D rows, a tile
+// per warp, the mbarriers (K/V full; Q full and empty, dO full and empty
+// per stage). dQ: Q and dO (the block's rows), `ring` stages of K and V,
+// a tile per warp, the mbarriers (K full and empty, V full and empty per
+// stage). Both add 1 KB to align the base to the 1024 bytes the swizzle
+// pattern repeats over. Tiles are boxes of kBoxCols columns (128-byte
+// rows), the last one zero past hd.
+__host__ __device__ constexpr int boxes_of(int hd) { return (hd + kBoxCols - 1) / kBoxCols; }
+__host__ __device__ constexpr int dkdv_bytes(int hd, int ring) {
+  return 2 * boxes_of(hd) * kBlockBox + ring * (2 * boxes_of(hd) * kTileBox + 2 * kTileRows * 4) +
+         kWarps * kWarpTile + 8 * (1 + 4 * ring) + 1024;
+}
+__host__ __device__ constexpr int dq_bytes(int hd, int ring) {
+  return 2 * boxes_of(hd) * kBlockBox + ring * 2 * boxes_of(hd) * kTileBox + kWarps * kWarpTile +
+         8 * 4 * ring + 1024;
+}
+// two stages where both kernels' tiles fit (hd <= 96), else one
+__host__ __device__ constexpr int ring_of(int hd) {
+  return dkdv_bytes(hd, kMaxRing) <= kSmemMax && dq_bytes(hd, kMaxRing) <= kSmemMax ? kMaxRing : 1;
+}
+static_assert(ring_of(96) == 2 && ring_of(112) == 1, "two stages fit up to hd 96");
+static_assert(dkdv_bytes(128, ring_of(128)) <= kSmemMax && dq_bytes(128, ring_of(128)) <= kSmemMax,
+              "hd 128 must fit the 227 KB a block may opt in to");
+
+// The accumulator columns of a thread: hd / 16 of them, in groups of which
+// each of a half warp's 16 lanes takes vec(g) neighbours: float4 groups
+// while four columns a lane are left, then a float2 group, then a float one
+// (hd 80: columns 4 cl .. 4 cl + 3 and 64 + cl), so a half warp's loads of
+// one streamed row are 16 neighbouring vectors, each inside one 16-byte
+// chunk, and no group overruns the 16 lanes. Group g fills slots slot(g) ..
+// slot(g) + vec(g) - 1 of the thread's hd / 16.
 template <int HD>
-struct Dims {
-  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "hd: a multiple of 16 from 16 to 128");
-  static constexpr int kLd = HD + kPad;                              // a tile row
-  static constexpr int kGroups = HD / 4;                             // float4 column groups
-  static constexpr int kGroupsPerThread = (kGroups + kSide - 1) / kSide;
-  static constexpr int kTile = kBlockQ * kLd;                        // floats of one tile
+struct Cols {
+  static constexpr int kPer = HD / kHalf;
+  static constexpr int kQuads = kPer / 4, kPairs = kPer % 4 / 2;
+  static constexpr int kGroups = kQuads + kPairs + kPer % 2;
+  __host__ __device__ static constexpr int vec(int g) {
+    return g < kQuads ? 4 : (g < kQuads + kPairs ? 2 : 1);
+  }
+  __host__ __device__ static constexpr int slot(int g) {
+    return g <= kQuads ? 4 * g : 4 * kQuads + 2 * kPairs;
+  }
+  // lane cl's first column of group g
+  __host__ __device__ static constexpr int col(int g, int cl) {
+    return kHalf * slot(g) + vec(g) * cl;
+  }
 };
 
-// Rows [row0, row0 + kBlockQ) of one head of a (B, S, heads, hd) tensor into
-// shared memory as float rows of kLd; rows at or past S read as zeros.
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, Strides st,
-                                          int b, int head, int row0, int S) {
-  const float* base = src + b * st.b + head * st.h;
-  for (int idx = threadIdx.x; idx < kBlockQ * HD; idx += kThreads) {
-    const int r = idx / HD;
-    const int d = idx - r * HD;
-    const int pos = row0 + r;
-    dst[r * Dims<HD>::kLd + d] = pos < S ? base[pos * st.s + d] : 0.0f;
-  }
-}
-
-// A row statistic (lse or D) of rows [row0, row0 + kBlockQ) of one (b, h)
-// into shared memory; rows at or past S read as 0.
-__device__ __forceinline__ void load_stat(float* dst, const float* __restrict__ src,
-                                          long long row_base, int row0, int S) {
-  for (int r = threadIdx.x; r < kBlockQ; r += kThreads) {
-    dst[r] = row0 + r < S ? src[row_base + row0 + r] : 0.0f;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * Bt[tx + 16 j][d]: a 4 x 4 microtile of a
-// product of two row-major tiles over hd, in float4 steps of d.
-template <int HD>
-__device__ __forceinline__ void dot_tile(const float* A, const float* Bt, int ty, int tx,
-                                         float acc[kMicro][kMicro]) {
-  constexpr int ld = Dims<HD>::kLd;
+// X (8 rows x 4 columns) += A B^T over `kChunks` 4-column chunks of one box:
+// A a block tile, row i of the thread at a_rows + 2 i rows (swizzle
+// (rg + 2 i) % 8); B a streamed tile, column t of the thread at row
+// cl + 16 t (b_rows + 16 t rows, swizzle kx = cl % 8).
+// The chunk loop is not unrolled: unrolled by 2, 4 or 8, ptxas hoists the
+// next chunks' loads until the dK/dV kernel at hd 128 spills, and it ran
+// slower (tools/flash_ablation.py --bwd's variants).
+template <int kChunks>
+__device__ __forceinline__ void dot_box(float (&x)[kMicroRows][kMicroCols], const uint8_t* a_rows,
+                                        const uint8_t* b_rows, int rg, int kx) {
+#pragma unroll 1
+  for (int ch = 0; ch < kChunks; ++ch) {
+    float4 af[kMicroRows], bf[kMicroCols];
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[kMicro], bt[kMicro];
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + kSide * i) * ld + d);
+    for (int i = 0; i < kMicroRows; ++i) {
+      af[i] = *reinterpret_cast<const float4*>(a_rows + 2 * i * kRowBytes +
+                                               ((ch ^ ((rg + 2 * i) & 7)) << 4));
     }
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      bt[j] = *reinterpret_cast<const float4*>(Bt + (tx + kSide * j) * ld + d);
+    for (int t = 0; t < kMicroCols; ++t) {
+      bf[t] = *reinterpret_cast<const float4*>(b_rows + kHalf * t * kRowBytes + ((ch ^ kx) << 4));
     }
 #pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
+    for (int i = 0; i < kMicroRows; ++i) {
 #pragma unroll
-      for (int j = 0; j < kMicro; ++j) {
-        float t = acc[i][j];
-        t = fmaf(a[i].x, bt[j].x, t);
-        t = fmaf(a[i].y, bt[j].y, t);
-        t = fmaf(a[i].z, bt[j].z, t);
-        t = fmaf(a[i].w, bt[j].w, t);
-        acc[i][j] = t;
+      for (int t = 0; t < kMicroCols; ++t) {
+        x[i][t] = fmaf(af[i].x, bf[t].x, x[i][t]);
+        x[i][t] = fmaf(af[i].y, bf[t].y, x[i][t]);
+        x[i][t] = fmaf(af[i].z, bf[t].z, x[i][t]);
+        x[i][t] = fmaf(af[i].w, bf[t].w, x[i][t]);
       }
     }
   }
 }
 
-// acc[i][4 m + c] += sum_r X[r][row0 + i] * Y[r][4 (tx + 16 m) + c] over the
-// kBlockQ rows r: the outer-product accumulation of X^T Y, X a (kBlockQ x
-// kLdP) tile whose columns row0 .. row0 + 3 (row0 = 4 ty) are this thread's
-// output rows, Y a (kBlockQ x kLd) tile.
+// X = A B^T over the head dim: full boxes in a loop, a last half box after
 template <int HD>
-__device__ __forceinline__ void accumulate_xty(const float* X, const float* Y, int ty, int tx,
-                                               float acc[kMicro][4 * Dims<HD>::kGroupsPerThread]) {
-  constexpr int ld = Dims<HD>::kLd;
-  constexpr int kMG = Dims<HD>::kGroupsPerThread;
-#pragma unroll 4
-  for (int r = 0; r < kBlockQ; ++r) {
-    const float4 x4 = *reinterpret_cast<const float4*>(X + r * kLdP + kMicro * ty);
-    const float xs[kMicro] = {x4.x, x4.y, x4.z, x4.w};
+__device__ __forceinline__ void dot_tile(float (&x)[kMicroRows][kMicroCols], const uint8_t* a_rows,
+                                         const uint8_t* b_rows, int rg, int kx) {
 #pragma unroll
-    for (int m = 0; m < kMG; ++m) {
-      const int c0 = 4 * (tx + kSide * m);
-      if (c0 < HD) {
-        const float4 y4 = *reinterpret_cast<const float4*>(Y + r * ld + c0);
+  for (int i = 0; i < kMicroRows; ++i) {
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i) {
-          acc[i][4 * m + 0] = fmaf(xs[i], y4.x, acc[i][4 * m + 0]);
-          acc[i][4 * m + 1] = fmaf(xs[i], y4.y, acc[i][4 * m + 1]);
-          acc[i][4 * m + 2] = fmaf(xs[i], y4.z, acc[i][4 * m + 2]);
-          acc[i][4 * m + 3] = fmaf(xs[i], y4.w, acc[i][4 * m + 3]);
+    for (int t = 0; t < kMicroCols; ++t) x[i][t] = 0.0f;
+  }
+#pragma unroll 1
+  for (int box = 0; box < HD / kBoxCols; ++box) {
+    dot_box<kBoxCols / 4>(x, a_rows + box * kBlockBox, b_rows + box * kTileBox, rg, kx);
+  }
+  if constexpr (HD % kBoxCols != 0) {
+    constexpr int kLast = HD / kBoxCols;
+    dot_box<(HD % kBoxCols) / 4>(x, a_rows + kLast * kBlockBox, b_rows + kLast * kTileBox, rg, kx);
+  }
+}
+
+// acc (8 rows x hd / 16 columns) += W B: W this warp's tile (local row r at
+// r * kWRow bytes, the 16-byte chunk of columns 4u..4u+3 at chunk u ^ (r %
+// 2); the thread's rows are r = rg + 2 i, w_rows points at row rg), B a
+// streamed tile of kTileRows rows.
+template <int HD>
+__device__ __forceinline__ void acc_tile(float (&acc)[kMicroRows][HD / kHalf], const uint8_t* w_rows,
+                                         const uint8_t* b_tile, int rg, int cl) {
+  using C = Cols<HD>;
+#pragma unroll 1
+  for (int u2 = 0; u2 < kTileRows / 8; ++u2) {
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = 2 * u2 + uu;  // streamed rows 4u..4u+3; j % 8 below is 4 uu + e
+      float4 wf[kMicroRows];
+#pragma unroll
+      for (int i = 0; i < kMicroRows; ++i) {
+        wf[i] = *reinterpret_cast<const float4*>(w_rows + 2 * i * kWRow + ((u ^ rg) << 4));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * u + e;
+        float bf[C::kGroups][4];
+#pragma unroll
+        for (int g = 0; g < C::kGroups; ++g) {
+          const int col = C::col(g, cl);
+          const uint8_t* at = b_tile + (col / kBoxCols) * kTileBox + j * kRowBytes +
+                              ((((col % kBoxCols) >> 2) ^ (4 * uu + e)) << 4) + 4 * (col & 3);
+          if (C::vec(g) == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(at);
+            bf[g][0] = x.x;
+            bf[g][1] = x.y;
+            bf[g][2] = x.z;
+            bf[g][3] = x.w;
+          } else if (C::vec(g) == 2) {
+            const float2 x = *reinterpret_cast<const float2*>(at);
+            bf[g][0] = x.x;
+            bf[g][1] = x.y;
+          } else {
+            bf[g][0] = *reinterpret_cast<const float*>(at);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMicroRows; ++i) {
+          const float w = e == 0 ? wf[i].x : e == 1 ? wf[i].y : e == 2 ? wf[i].z : wf[i].w;
+#pragma unroll
+          for (int g = 0; g < C::kGroups; ++g) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              if (x < C::vec(g)) {
+                acc[i][C::slot(g) + x] = fmaf(w, bf[g][x], acc[i][C::slot(g) + x]);
+              }
+            }
+          }
         }
       }
     }
   }
 }
 
-// Store this thread's rows row0 + 4 ty + i (those below S) of an
-// accumulator as rows of one head of a (B, S, heads, hd) tensor.
-template <int HD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides st, int b, int head,
-                                           int row0, int S, int ty, int tx,
-                                           const float acc[kMicro][4 * Dims<HD>::kGroupsPerThread]) {
-  float* base = dst + b * st.b + head * st.h;
+// This thread's 8 x 4 entries into its warp's tile: row rg + 2 i, column
+// cl + 16 t in chunk (cl / 4 + 4 t) ^ rg
+__device__ __forceinline__ void put_tile(uint8_t* w_rows, const float (&x)[kMicroRows][kMicroCols],
+                                         int rg, int cl) {
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int pos = row0 + kMicro * ty + i;
-    if (pos >= S) continue;
+  for (int i = 0; i < kMicroRows; ++i) {
 #pragma unroll
-    for (int m = 0; m < Dims<HD>::kGroupsPerThread; ++m) {
-      const int c0 = 4 * (tx + kSide * m);
-      if (c0 < HD) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) base[pos * st.s + c0 + c] = acc[i][4 * m + c];
-      }
+    for (int t = 0; t < kMicroCols; ++t) {
+      *reinterpret_cast<float*>(w_rows + 2 * i * kWRow + ((((cl >> 2) ^ rg) + 4 * t) << 4) +
+                                4 * (cl & 3)) = x[i][t];
     }
   }
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int window) {
-  return kpos <= qpos && qpos < S && (window <= 0 || qpos - kpos < window);
-}
-
-// s_c of a raw dot product, and its derivative d s_c / d s in *dcap
-__device__ __forceinline__ float capped_score(float dot, float scale, float softcap, float* dcap) {
-  const float s = dot * scale;
-  if (softcap > 0.0f) {
-    const float t = tanhf(s / softcap);
-    *dcap = 1.0f - t * t;
-    return softcap * t;
+// u of raw dot products, in place, in the forward's order: s hd^-0.5, then
+// with the softcap tanh(s hd^-0.5 / softcap) (hopper::tanh_capped, the
+// forward's). A score in base 2 is c u.
+__device__ __forceinline__ void cap_scores(float (&s)[kMicroRows][kMicroCols], float scale,
+                                           bool capped, float inv_cap) {
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+#pragma unroll
+    for (int t = 0; t < kMicroCols; ++t) s[i][t] *= scale;
   }
-  *dcap = 1.0f;
-  return s;
+  if (capped) tanh_capped(s, inv_cap);
 }
 
-// The key tiles a query tile from q0 visits: [first, last].
-__device__ __forceinline__ int2 key_tiles(int q0, int S, int window) {
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = min(S, q0 + kBlockQ) - 1;
-  return make_int2(k_lo / kBlockK, k_hi / kBlockK);
+__device__ __forceinline__ bool visible(int query, int key, int S, int window) {
+  return key <= query && query < S && (window <= 0 || query - key < window);
 }
 
-// P and dS of one score microtile: p = exp(s_c - lse), ds = p (dP - D)
-// (1 - (s_c / c)^2) hd^-0.5, both 0 on a masked entry.
-__device__ __forceinline__ void grad_scores(const float s[kMicro][kMicro],
-                                            const float dp[kMicro][kMicro], const float* lse_s,
-                                            const float* d_s, int q0, int k0, int ty, int tx,
-                                            int S, int window, float scale, float softcap,
-                                            float p[kMicro][kMicro], float ds[kMicro][kMicro]) {
+// p = 2^(c u - lse2) and dS' = p (dP - D) (1 - u^2 with the softcap) of one
+// microtile, in place of u and dp (dS = dS' hd^-0.5, applied at the store).
+// dK/dV: rows are keys (key0 + 2 i), columns queries (query0 + 16 t), whose
+// lse2 and D are the streamed tile's (lse2[16 t], dsum[16 t]). With kMasked
+// a pair that is not visible gets p = dS' = 0.
+template <bool kMasked>
+__device__ __forceinline__ void key_grads(float (&u)[kMicroRows][kMicroCols],
+                                          float (&dp)[kMicroRows][kMicroCols],
+                                          const float* lse2, const float* dsum, int key0,
+                                          int query0, int S, int window, bool capped, float c) {
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int qi = ty + kSide * i;
+  for (int t = 0; t < kMicroCols; ++t) {
+    const float l2 = lse2[kHalf * t], d = dsum[kHalf * t];
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      p[i][j] = 0.0f;
-      ds[i][j] = 0.0f;
-      if (visible(q0 + qi, k0 + tx + kSide * j, S, window)) {
-        float dcap;
-        const float c = capped_score(s[i][j], scale, softcap, &dcap);
-        p[i][j] = expf(c - lse_s[qi]);
-        ds[i][j] = p[i][j] * (dp[i][j] - d_s[qi]) * dcap * scale;
-      }
+    for (int i = 0; i < kMicroRows; ++i) {
+      const float p = exp2_ftz(fmaf(u[i][t], c, -l2));
+      float ds = p * (dp[i][t] - d);
+      if (capped) ds *= fmaf(-u[i][t], u[i][t], 1.0f);
+      const bool in = !kMasked || visible(query0 + kHalf * t, key0 + 2 * i, S, window);
+      u[i][t] = in ? p : 0.0f;
+      dp[i][t] = in ? ds : 0.0f;
+    }
+  }
+}
+
+// dS' of one microtile in place of dp (u is spent). dQ: rows are queries
+// (position q0 + byte i % 4 of pos_lo (i < 4) or pos_hi, lse2 and D in
+// l2[i], dd[i]), columns keys (key0 + 16 t).
+template <bool kMasked>
+__device__ __forceinline__ void query_grads(float (&u)[kMicroRows][kMicroCols],
+                                            float (&dp)[kMicroRows][kMicroCols],
+                                            const float (&l2)[kMicroRows],
+                                            const float (&dd)[kMicroRows], int q0, uint32_t pos_lo,
+                                            uint32_t pos_hi, int key0, int S, int window,
+                                            bool capped, float c) {
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+    const int pos = q0 + static_cast<int>(((i < 4 ? pos_lo : pos_hi) >> (8 * (i % 4))) & 0xffu);
+#pragma unroll
+    for (int t = 0; t < kMicroCols; ++t) {
+      const float p = exp2_ftz(fmaf(u[i][t], c, -l2[i]));
+      float ds = p * (dp[i][t] - dd[i]);
+      if (capped) ds *= fmaf(-u[i][t], u[i][t], 1.0f);
+      const bool in = !kMasked || visible(pos, key0 + kHalf * t, S, window);
+      dp[i][t] = in ? ds : 0.0f;
     }
   }
 }
@@ -349,165 +490,435 @@ __device__ __forceinline__ void grad_scores(const float s[kMicro][kMicro],
 // ---------------------------------------------------------------- kernel 2
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout, Strides sq,
-                          Strides sk, Strides sv, Strides sdo, const float* __restrict__ lse,
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse2,
                           const float* __restrict__ dsum, float* __restrict__ dk,
                           float* __restrict__ dv, Strides sdk, Strides sdv, int S, int H, int rep,
-                          int stat_s, int window, float scale, float softcap) {
-  constexpr int kMG = Dims<HD>::kGroupsPerThread;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + Dims<HD>::kTile;
-  float* Qs = Vs + Dims<HD>::kTile;
-  float* dOs = Qs + Dims<HD>::kTile;
-  float* Ps = dOs + Dims<HD>::kTile;
-  float* dSs = Ps + kBlockQ * kLdP;
-  float* lse_s = dSs + kBlockQ * kLdP;
-  float* d_s = lse_s + kBlockQ;
-  const int kt = blockIdx.x;  // key tile 0 sees the most query tiles: first
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kBlockK;
-  const int tid = threadIdx.x, ty = tid / kSide, tx = tid % kSide;
+                          int stat_s, int window, float scale, float inv_cap, float c) {
+  constexpr int kBoxes = boxes_of(HD);
+  constexpr int kRing = ring_of(HD);
+  constexpr int kBlockTile = kBoxes * kBlockBox;
+  constexpr int kTile = kBoxes * kTileBox;
+  using C = Cols<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_tile = align_1024(smem_raw);
+  uint8_t* v_tile = k_tile + kBlockTile;
+  uint8_t* ring = v_tile + kBlockTile;  // stage st: Q at 2 st kTile, dO at (2 st + 1) kTile
+  uint8_t* warp_tiles = ring + 2 * kRing * kTile;
+  // stage st: lse2 at 2 st kTileRows floats, D at (2 st + 1) kTileRows
+  float* stats = reinterpret_cast<float*>(warp_tiles + kWarps * kWarpTile);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + 2 * kRing * kTileRows);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + kRing;
+  uint64_t* do_full = q_empty + kRing;
+  uint64_t* do_empty = do_full + kRing;
 
-  load_rows<HD>(Ks, k, sk, b, g, k0, S);
-  load_rows<HD>(Vs, v, sv, b, g, k0, S);
-  float dk_acc[kMicro][4 * kMG], dv_acc[kMicro][4 * kMG];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4 * kMG; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+  // the grid is (KV head, batch, key block), the key block slowest, so the
+  // blocks that see the most query tiles (key block 0) start first on every
+  // head and batch, and the short ones fill the tail
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBlockRows;
+  // the query tiles some key of the block sees: from the one holding k0 to
+  // the one holding the last position within the window, below S; for each
+  // of the rep query heads, in that order
+  const int q_last = window > 0 ? min(S - 1, k0 + kBlockRows - 2 + window) : S - 1;
+  const int qt0 = k0 / kTileRows;
+  const int n_qt = q_last / kTileRows - qt0 + 1;
+  const int n_tiles = rep * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kRing; ++st) {
+      mbar_init(&q_full[st], 1);
+      mbar_init(&do_full[st], 1);
+      mbar_init(&q_empty[st], kWarps);  // one arrival per warp
+      mbar_init(&do_empty[st], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the query tiles that see this key tile: positions k0 .. k0 + kBlockK -
-  // 2 + window (window > 0), below S
-  const int q_hi = window > 0 ? min(S - 1, k0 + kBlockK - 2 + window) : S - 1;
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    const long long bh = static_cast<long long>(b) * H + h;
-    for (int qt = k0 / kBlockQ; qt <= q_hi / kBlockQ; ++qt) {
-      const int q0 = qt * kBlockQ;
-      __syncthreads();  // the last tile's readers are done
-      load_rows<HD>(Qs, q, sq, b, h, q0, S);
-      load_rows<HD>(dOs, dout, sdo, b, h, q0, S);
-      load_stat(lse_s, lse, bh * S, q0, S);
-      load_stat(d_s, dsum, bh * stat_s, q0, S);
-      __syncthreads();
-      float s[kMicro][kMicro], dp[kMicro][kMicro], p[kMicro][kMicro], ds[kMicro][kMicro];
-      dot_tile<HD>(Qs, Ks, ty, tx, s);
-      dot_tile<HD>(dOs, Vs, ty, tx, dp);
-      grad_scores(s, dp, lse_s, d_s, q0, k0, ty, tx, S, window, scale, softcap, p, ds);
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) {
-          Ps[(ty + kSide * i) * kLdP + tx + kSide * j] = p[i][j];
-          dSs[(ty + kSide * i) * kLdP + tx + kSide * j] = ds[i][j];
-        }
+  __syncthreads();
+
+  // Thread 0 loads K and V once, then keeps the ring full: Q (or dO) of
+  // tile u, with its lse2 (or D) rows, goes into stage u % kRing once every
+  // warp is done with tile u - kRing there (a fresh barrier counts its
+  // phase before the first as complete). Tile t + 1 is asked for in turn t:
+  // with two stages as the turn starts, with one as soon as every warp is
+  // done with tile t's Q (or dO).
+  auto load = [&](int u, int which) {  // which: 0 Q and lse2, 1 dO and D
+    if (threadIdx.x != 0 || u >= n_tiles) return;
+    const int st = u % kRing;
+    uint64_t* full = which ? &do_full[st] : &q_full[st];
+    const int h = g * rep + u / n_qt;
+    const int q0 = (qt0 + u % n_qt) * kTileRows;
+    mbar_wait(which ? &do_empty[st] : &q_empty[st], ((u / kRing) & 1) ^ 1);
+    mbar_expect_tx(full, kTile + kTileRows * 4);
+    uint8_t* tile = ring + (2 * st + which) * kTile;
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load(tile + x * kTileBox, which ? &tm_do : &tm_q, full, kBoxCols * x, q0, h, b);
+    }
+    const float* src = (which ? dsum : lse2) + (static_cast<long long>(b) * H + h) * stat_s + q0;
+    bulk_load(stats + (2 * st + which) * kTileRows, src, kTileRows * 4, full);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * kBlockTile);
+    for (int x = 0; x < kBoxes; ++x) {
+      for (int r = 0; r < kBlockRows; r += kTileRows) {
+        tma_load(k_tile + x * kBlockBox + r * kRowBytes, &tm_k, kv_full, kBoxCols * x, k0 + r, g, b);
+        tma_load(v_tile + x * kBlockBox + r * kRowBytes, &tm_v, kv_full, kBoxCols * x, k0 + r, g, b);
       }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: this thread's keys 4 ty + i
-      accumulate_xty<HD>(Ps, dOs, ty, tx, dv_acc);
-      accumulate_xty<HD>(dSs, Qs, ty, tx, dk_acc);
     }
   }
-  store_rows<HD>(dk, sdk, b, g, k0, S, ty, tx, dk_acc);
-  store_rows<HD>(dv, sdv, b, g, k0, S, ty, tx, dv_acc);
+  load(0, 0);
+  load(0, 1);
+  __syncwarp();
+
+  const int rg = lane / kHalf, cl = lane % kHalf;
+  const int row0 = kWarpRows * warp + rg;    // this thread's keys: k0 + row0 + 2 i
+  const int kw0 = k0 + kWarpRows * warp;     // this warp's first key
+  const uint8_t* k_rows = k_tile + row0 * kRowBytes;
+  const uint8_t* v_rows = v_tile + row0 * kRowBytes;
+  uint8_t* w_tile = warp_tiles + warp * kWarpTile;
+  uint8_t* w_rows = w_tile + rg * kWRow;
+  float4* u_own = reinterpret_cast<float4*>(w_tile) + lane;  // u of row i at u_own[32 i]
+  const int kx = cl & 7;
+  const bool capped = inv_cap > 0.0f;
+
+  float dk_acc[kMicroRows][C::kPer], dv_acc[kMicroRows][C::kPer];
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+#pragma unroll
+    for (int x = 0; x < C::kPer; ++x) dk_acc[i][x] = dv_acc[i][x] = 0.0f;
+  }
+  mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kRing;
+    const uint32_t parity = (t / kRing) & 1;
+    const int q0 = (qt0 + t % n_qt) * kTileRows;
+    if constexpr (kRing > 1) {
+      load(t + 1, 0);
+      load(t + 1, 1);
+      __syncwarp();
+    }
+    const uint8_t* q_tile = ring + 2 * st * kTile;
+    const uint8_t* do_tile = q_tile + kTile;
+    const float* tile_lse2 = stats + 2 * st * kTileRows;
+    const float* tile_dsum = tile_lse2 + kTileRows;
+    // a tile none of this warp's keys sees is skipped (its stages still
+    // waited for and freed); per-element masks only on tiles that cross
+    // the diagonal, the window's edge or S
+    const bool sees = kw0 < S && kw0 <= min(q0 + kTileRows, S) - 1 &&
+                      (window <= 0 || q0 - (kw0 + kWarpRows - 1) < window);
+    const bool whole = k0 + kBlockRows - 1 <= q0 && q0 + kTileRows <= S &&
+                       (window <= 0 || q0 + kTileRows - 1 - k0 < window);
+    float p[kMicroRows][kMicroCols];
+    mbar_wait(&q_full[st], parity);
+    if (sees) {  // S^T = K Q^T, kept as u in this lane's slots of the warp's tile
+      float s[kMicroRows][kMicroCols];
+      dot_tile<HD>(s, k_rows, q_tile + cl * kRowBytes, rg, kx);
+      cap_scores(s, scale, capped, inv_cap);
+#pragma unroll
+      for (int i = 0; i < kMicroRows; ++i) u_own[32 * i] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    }
+    mbar_wait(&do_full[st], parity);
+    if (sees) {
+      float dp[kMicroRows][kMicroCols];
+      dot_tile<HD>(dp, v_rows, do_tile + cl * kRowBytes, rg, kx);  // dP^T = V dO^T
+#pragma unroll
+      for (int i = 0; i < kMicroRows; ++i) {
+        const float4 x = u_own[32 * i];
+        p[i][0] = x.x;
+        p[i][1] = x.y;
+        p[i][2] = x.z;
+        p[i][3] = x.w;
+      }
+      __syncwarp();  // every lane has its u back before dS^T overwrites the tile
+      if (whole) {
+        key_grads<false>(p, dp, tile_lse2 + cl, tile_dsum + cl, k0 + row0, q0 + cl, S, window,
+                         capped, c);
+      } else {
+        key_grads<true>(p, dp, tile_lse2 + cl, tile_dsum + cl, k0 + row0, q0 + cl, S, window,
+                        capped, c);
+      }
+      put_tile(w_rows, dp, rg, cl);
+      __syncwarp();
+      acc_tile<HD>(dk_acc, w_rows, q_tile, rg, cl);  // dK += dS^T Q
+    }
+    __syncwarp();  // also: every lane is done reading dS^T before P^T overwrites it
+    if (lane == 0) mbar_arrive(&q_empty[st]);
+    if constexpr (kRing == 1) {
+      load(t + 1, 0);
+      __syncwarp();
+    }
+    if (sees) {
+      put_tile(w_rows, p, rg, cl);
+      __syncwarp();
+      acc_tile<HD>(dv_acc, w_rows, do_tile, rg, cl);  // dV += P^T dO
+    }
+    __syncwarp();  // also: every lane is done reading P^T before the next tile's u
+    if (lane == 0) mbar_arrive(&do_empty[st]);
+    if constexpr (kRing == 1) {
+      load(t + 1, 1);
+      __syncwarp();
+    }
+  }
+
+  // dK hd^-0.5 and dV of this thread's keys below S
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+    const int key = k0 + row0 + 2 * i;
+    if (key >= S) continue;
+    float* dkr = dk + b * sdk.b + key * sdk.s + g * sdk.h;
+    float* dvr = dv + b * sdv.b + key * sdv.s + g * sdv.h;
+#pragma unroll
+    for (int g = 0; g < C::kGroups; ++g) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (x < C::vec(g)) {
+          dkr[C::col(g, cl) + x] = dk_acc[i][C::slot(g) + x] * scale;
+          dvr[C::col(g, cl) + x] = dv_acc[i][C::slot(g) + x];
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- kernel 3
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout, Strides sq,
-                        Strides sk, Strides sv, Strides sdo, const float* __restrict__ lse,
-                        const float* __restrict__ dsum, float* __restrict__ dq, Strides sdq, int S,
-                        int H, int rep, int stat_s, int window, float scale, float softcap) {
-  constexpr int kMG = Dims<HD>::kGroupsPerThread;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + Dims<HD>::kTile;
-  float* Ks = dOs + Dims<HD>::kTile;
-  float* Vs = Ks + Dims<HD>::kTile;
-  float* dSt = Vs + Dims<HD>::kTile;  // dS transposed: dSt[key][query]
-  float* lse_s = dSt + kBlockK * kLdP;
-  float* d_s = lse_s + kBlockQ;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, g = h / rep;
-  const int q0 = qt * kBlockQ;
-  const int tid = threadIdx.x, ty = tid / kSide, tx = tid % kSide;
-  const long long bh = static_cast<long long>(b) * H + h;
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, Strides sq, Strides sdo,
+                        const float* __restrict__ lse2, const float* __restrict__ dsum,
+                        float* __restrict__ dq, Strides sdq, int S, int H, int rep, int groups,
+                        int hb, int bq, int stat_s, int window, float scale, float inv_cap,
+                        float c) {
+  constexpr int kBoxes = boxes_of(HD);
+  constexpr int kRing = ring_of(HD);
+  constexpr int kBlockTile = kBoxes * kBlockBox;
+  constexpr int kTile = kBoxes * kTileBox;
+  using C = Cols<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_tile = align_1024(smem_raw);
+  uint8_t* do_tile = q_tile + kBlockTile;
+  uint8_t* ring = do_tile + kBlockTile;  // stage st: K at 2 st kTile, V at (2 st + 1) kTile
+  uint8_t* warp_tiles = ring + 2 * kRing * kTile;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(warp_tiles + kWarps * kWarpTile);
+  uint64_t* v_full = k_full + kRing;
+  uint64_t* k_empty = v_full + kRing;
+  uint64_t* v_empty = k_empty + kRing;
 
-  load_rows<HD>(Qs, q, sq, b, h, q0, S);
-  load_rows<HD>(dOs, dout, sdo, b, h, q0, S);
-  load_stat(lse_s, lse, bh * S, q0, S);
-  load_stat(d_s, dsum, bh * stat_s, q0, S);
-  float dq_acc[kMicro][4 * kMG];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4 * kMG; ++c) dq_acc[i][c] = 0.0f;
-  }
-  const int2 kts = key_tiles(q0, S, window);
-  for (int kt = kts.x; kt <= kts.y; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the last tile's readers are done
-    load_rows<HD>(Ks, k, sk, b, g, k0, S);
-    load_rows<HD>(Vs, v, sv, b, g, k0, S);
-    __syncthreads();
-    float s[kMicro][kMicro], dp[kMicro][kMicro], p[kMicro][kMicro], ds[kMicro][kMicro];
-    dot_tile<HD>(Qs, Ks, ty, tx, s);
-    dot_tile<HD>(dOs, Vs, ty, tx, dp);
-    grad_scores(s, dp, lse_s, d_s, q0, k0, ty, tx, S, window, scale, softcap, p, ds);
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) dSt[(tx + kSide * j) * kLdP + ty + kSide * i] = ds[i][j];
+  // the grid is (KV head x head group, batch, row block), the row block
+  // slowest and the last (the longest rows) first
+  const int g = blockIdx.x / groups;                    // the KV head
+  const int h0 = g * rep + (blockIdx.x % groups) * hb;  // the block's first query head
+  const int b = blockIdx.y;
+  const Rows rows{static_cast<int>(gridDim.z - 1 - blockIdx.z) * bq, S, hb, bq,
+                  min(hb, g * rep + rep - h0)};
+  const int q0 = rows.q0;
+  // the keys any row of the block can see: [k_begin, k_end), in tiles
+  const int k_end = min(q0 + bq, S);
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_begin = (k_first / kTileRows) * kTileRows;
+  const int n_tiles = (k_end - k_begin + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRing; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&k_empty[st], kWarps);  // one arrival per warp
+      mbar_init(&v_empty[st], kWarps);
     }
-    __syncthreads();
-    // dQ += dS K: this thread's queries 4 ty + i
-    accumulate_xty<HD>(dSt, Ks, ty, tx, dq_acc);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_rows<HD>(dq, sdq, b, h, q0, S, ty, tx, dq_acc);
+  __syncthreads();
+
+  // Thread 0 keeps the ring full, as in the dK/dV kernel: K (or V) of
+  // tile u into stage u % kRing, tile t + 1 asked for in turn t.
+  auto load = [&](int u, int which) {  // which: 0 K, 1 V
+    if (threadIdx.x != 0 || u >= n_tiles) return;
+    const int st = u % kRing;
+    uint64_t* full = which ? &v_full[st] : &k_full[st];
+    mbar_wait(which ? &v_empty[st] : &k_empty[st], ((u / kRing) & 1) ^ 1);
+    mbar_expect_tx(full, kTile);
+    uint8_t* tile = ring + (2 * st + which) * kTile;
+    for (int x = 0; x < kBoxes; ++x) {
+      tma_load(tile + x * kTileBox, which ? &tm_v : &tm_k, full, kBoxCols * x,
+               k_begin + u * kTileRows, g, b);
+    }
+  };
+  load(0, 1);
+  load(0, 0);
+
+  const int rg = lane / kHalf, cl = lane % kHalf;
+  const int row0 = kWarpRows * warp + rg;  // this thread's rows: row0 + 2 i
+
+  // this warp's 16 rows of Q and dO into the swizzled layout (rows that are
+  // not live read as 0)
+  for (int r = 0; r < kWarpRows; ++r) {
+    const int row = kWarpRows * warp + r;
+    const bool live = rows.live(row);
+    const long long pos = live ? rows.pos(row) : 0;
+    const long long head = h0 + (live ? rows.head(row) : 0);
+    const float* qsrc = q + b * sq.b + pos * sq.s + head * sq.h;
+    const float* dsrc = dout + b * sdo.b + pos * sdo.s + head * sdo.h;
+    for (int d = lane; d < HD; d += 32) {
+      const int at = (d / kBoxCols) * kBlockBox + swizzled(row, d);
+      *reinterpret_cast<float*>(q_tile + at) = live ? qsrc[d] : 0.0f;
+      *reinterpret_cast<float*>(do_tile + at) = live ? dsrc[d] : 0.0f;
+    }
+  }
+  __syncwarp();
+
+  // the offsets of the thread's rows from q0, a byte each; their lse2 and D
+  uint32_t pos_lo = 0, pos_hi = 0;
+  float l2[kMicroRows], dd[kMicroRows];
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+    const int row = row0 + 2 * i;
+    const uint32_t rel = static_cast<uint32_t>(row / hb);
+    if (i < 4) {
+      pos_lo |= rel << (8 * i);
+    } else {
+      pos_hi |= rel << (8 * (i - 4));
+    }
+    const long long at =
+        (static_cast<long long>(b) * H + h0 + rows.head(row)) * stat_s + rows.pos(row);
+    l2[i] = rows.live(row) ? lse2[at] : 0.0f;
+    dd[i] = rows.live(row) ? dsum[at] : 0.0f;
+  }
+  // the positions this warp's rows can hold, for skipping tiles it cannot see
+  const int w_first = kWarpRows * warp / hb;
+  const int w_last = min((kWarpRows * warp + kWarpRows - 1) / hb, bq - 1);
+  const int p_min = q0 + w_first, p_max = min(q0 + w_last, S - 1);
+
+  float acc[kMicroRows][C::kPer];
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+#pragma unroll
+    for (int x = 0; x < C::kPer; ++x) acc[i][x] = 0.0f;
+  }
+  const uint8_t* q_rows = q_tile + row0 * kRowBytes;
+  const uint8_t* do_rows = do_tile + row0 * kRowBytes;
+  uint8_t* w_rows = warp_tiles + warp * kWarpTile + rg * kWRow;
+  const int kx = cl & 7;
+  const bool capped = inv_cap > 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kRing;
+    const uint32_t parity = (t / kRing) & 1;
+    const int k0 = k_begin + t * kTileRows;
+    if constexpr (kRing > 1) {
+      load(t + 1, 1);
+      load(t + 1, 0);
+      __syncwarp();
+    }
+    const uint8_t* k_tile = ring + 2 * st * kTile;
+    const uint8_t* v_tile = k_tile + kTile;
+    const bool sees = w_first <= w_last && p_min <= p_max && k0 <= p_max &&
+                      (window <= 0 || p_min - (k0 + kTileRows - 1) < window);
+    const bool whole = k0 + kTileRows - 1 <= q0 && k0 + kTileRows <= S &&
+                       (window <= 0 || k_end - 1 - k0 < window);
+    float dp[kMicroRows][kMicroCols];
+    mbar_wait(&v_full[st], parity);
+    if (sees) dot_tile<HD>(dp, do_rows, v_tile + cl * kRowBytes, rg, kx);  // dP = dO V^T
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&v_empty[st]);
+    if constexpr (kRing == 1) {
+      load(t + 1, 1);
+      __syncwarp();
+    }
+    mbar_wait(&k_full[st], parity);
+    if (sees) {
+      float s[kMicroRows][kMicroCols];
+      dot_tile<HD>(s, q_rows, k_tile + cl * kRowBytes, rg, kx);  // S = Q K^T
+      cap_scores(s, scale, capped, inv_cap);
+      if (whole) {
+        query_grads<false>(s, dp, l2, dd, q0, pos_lo, pos_hi, k0 + cl, S, window, capped, c);
+      } else {
+        query_grads<true>(s, dp, l2, dd, q0, pos_lo, pos_hi, k0 + cl, S, window, capped, c);
+      }
+      put_tile(w_rows, dp, rg, cl);
+      __syncwarp();
+      acc_tile<HD>(acc, w_rows, k_tile, rg, cl);  // dQ += dS K
+    }
+    __syncwarp();  // also: every lane is done reading dS before the next tile's
+    if (lane == 0) mbar_arrive(&k_empty[st]);
+    if constexpr (kRing == 1) {
+      load(t + 1, 0);
+      __syncwarp();
+    }
+  }
+
+  // dQ hd^-0.5 of this thread's live rows
+#pragma unroll
+  for (int i = 0; i < kMicroRows; ++i) {
+    const int row = row0 + 2 * i;
+    if (!rows.live(row)) continue;
+    float* dst = dq + b * sdq.b + static_cast<long long>(rows.pos(row)) * sdq.s +
+                 static_cast<long long>(h0 + rows.head(row)) * sdq.h;
+#pragma unroll
+    for (int g = 0; g < C::kGroups; ++g) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (x < C::vec(g)) dst[C::col(g, cl) + x] = acc[i][C::slot(g) + x] * scale;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- launch
-template <int HD>
-constexpr int dkdv_smem() {
-  return (4 * Dims<HD>::kTile + 2 * kBlockQ * kLdP + 2 * kBlockQ) * static_cast<int>(sizeof(float));
-}
-template <int HD>
-constexpr int dq_smem() {
-  return (4 * Dims<HD>::kTile + kBlockK * kLdP + 2 * kBlockQ) * static_cast<int>(sizeof(float));
-}
-static_assert(dkdv_smem<128>() <= 232448, "kernel 2's tiles exceed a block's shared memory");
-
+// The dQ kernel's GQA packing, the forward's (hopper::layout), of
+// kBlockRows rows a block (kernels/flash_attention.py:f32_layout with
+// FLASH_BWD_BLOCK_ROWS is the same function)
+inline Layout layout(int rep) { return hopper::layout(rep, kBlockRows); }
 
 template <int HD>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, const long long* st, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = hopper::make_map(&tm_q, kType, 4, kBoxCols, a.q, HD, a.S, a.H, a.B, st, kTileRows);
+  if (err == 0) {
+    err = hopper::make_map(&tm_k, kType, 4, kBoxCols, a.k, HD, a.S, a.G, a.B, st + 3, kTileRows);
+  }
+  if (err == 0) {
+    err = hopper::make_map(&tm_v, kType, 4, kBoxCols, a.v, HD, a.S, a.G, a.B, st + 6, kTileRows);
+  }
+  if (err == 0) {
+    err = hopper::make_map(&tm_do, kType, 4, kBoxCols, a.dout, HD, a.S, a.H, a.B, st + 12,
+                           kTileRows);
+  }
+  if (err != 0) return hopper::kEncoderErrorBase + err;
   const auto k2 = flash_bwd_dkdv_kernel<HD>;
   const auto k3 = flash_bwd_dq_kernel<HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem<HD>());
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<HD>());
+  constexpr int kDkdvSmem = dkdv_bytes(HD, ring_of(HD));
+  constexpr int kDqSmem = dq_bytes(HD, ring_of(HD));
+  cudaError_t attr =
+      cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+  if (attr == cudaSuccess) {
+    attr = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // a score in base 2 is c u (cap_scores)
+  const bool capped = a.softcap > 0.0f;
+  const float inv_cap = capped ? 1.0f / a.softcap : 0.0f;
+  const float c = capped ? a.softcap * kLog2e : kLog2e;
   const int rep = a.H / a.G;
-  const int nq = (a.S + kBlockQ - 1) / kBlockQ;
-  const int nk = (a.S + kBlockK - 1) / kBlockK;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
-  k2<<<dim3(nk, a.G, a.B), kThreads, dkdv_smem<HD>(), stream>>>(
-      q, k, v, dout, a.sq, a.sk, a.sv, a.sdo, a.lse, a.dsum, static_cast<float*>(a.dk),
+  k2<<<dim3(a.G, a.B, (a.S + kBlockRows - 1) / kBlockRows), kThreads, kDkdvSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, a.lse2, a.dsum, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.sdk, a.sdv, a.S, a.H, rep, a.stat_s, a.window, a.scale,
-      a.softcap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k3<<<dim3(nq, a.H, a.B), kThreads, dq_smem<HD>(), stream>>>(
-      q, k, v, dout, a.sq, a.sk, a.sv, a.sdo, a.lse, a.dsum, static_cast<float*>(a.dq), a.sdq,
-      a.S, a.H, rep, a.stat_s, a.window, a.scale, a.softcap);
+      inv_cap, c);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  const Layout lay = layout(rep);
+  k3<<<dim3(a.G * lay.groups, a.B, (a.S + lay.bq - 1) / lay.bq), kThreads, kDqSmem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.dout), tm_k, tm_v, a.sq, a.sdo,
+      a.lse2, a.dsum, static_cast<float*>(a.dq), a.sdq, a.S, a.H, rep, lay.groups, lay.hb, lay.bq,
+      a.stat_s, a.window, a.scale, inv_cap, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1008,13 +1419,15 @@ repro_torch::bwd::Args bwd_args(const void* q, const void* k, const void* v, con
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* lse, const void* dout,
                                          void* dq, void* dk, void* dv, void* lse2, void* dsum,
-                                         int B, int S, int H, int G, int hd, int block_q,
-                                         int block_k, int threads, int stat_s,
-                                         const long long* strides, int window, float scale,
-                                         float softcap, void* stream) {
+                                         int B, int S, int H, int G, int hd, int block_rows,
+                                         int tile_rows, int stages, int micro_rows,
+                                         int micro_cols, int stat_s, const long long* strides,
+                                         int window, float scale, float softcap, void* stream) {
   using namespace repro_torch::bwd;
-  if (block_q != ffma::kBlockQ || block_k != ffma::kBlockK || threads != ffma::kThreads ||
-      !bwd_shape_ok(B, S, H, G, hd, stat_s)) {
+  if (block_rows != ffma::kBlockRows || tile_rows != ffma::kTileRows ||
+      stages != ffma::kMaxRing || micro_rows != ffma::kMicroRows ||
+      micro_cols != ffma::kMicroCols || !bwd_shape_ok(B, S, H, G, hd, stat_s) ||
+      (S + ffma::layout(H / G).bq - 1) / ffma::layout(H / G).bq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a = bwd_args(q, k, v, o, lse, dout, dq, dk, dv, lse2, dsum, B, S, H, G, stat_s,
@@ -1025,7 +1438,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   switch (hd) {
 #define REPRO_BWD_CASE(HD) \
   case HD:                 \
-    return ffma::launch<HD>(a, s);
+    return ffma::launch<HD>(a, strides, s);
     REPRO_BWD_CASE(16)
     REPRO_BWD_CASE(32)
     REPRO_BWD_CASE(48)
@@ -1037,6 +1450,25 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
 #undef REPRO_BWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// float32: what a block of the FFMA kernels holds at head dim hd: the
+// dynamic shared memory of the dK/dV kernel (which 0) and of the dQ kernel
+// (1) in bytes, or the streamed tiles in flight (2); -1 for another hd or
+// which
+extern "C" int repro_flash_attention_bwd_f32_layout(int hd, int which) {
+  using namespace repro_torch::bwd::ffma;
+  if (hd < 16 || hd > 128 || hd % 16 != 0) return -1;
+  switch (which) {
+    case 0:
+      return dkdv_bytes(hd, ring_of(hd));
+    case 1:
+      return dq_bytes(hd, ring_of(hd));
+    case 2:
+      return ring_of(hd);
+    default:
+      return -1;
   }
 }
 

@@ -14,14 +14,15 @@ it first checks what the kernels take: float32 or bf16 q, k, v of one
 type, q (B, S, H, hd) and k, v (B, S, G, hd) with G dividing H, hd in
 ``autotune.FLASH_HEAD_DIMS`` (a multiple of 16 from 16 to 128), the head
 dim contiguous, and on the card what the kernels' TMA loads need
-(``tma_violation``: of q, k and v in bf16, of k and v in float32, whose q
-is read by plain loads; the bf16 backward's of q, k, v, o and dO, the
-float32 backward reads with plain loads). Other strides are read as they
-are: nothing is transposed or copied.
+(``tma_violation``: of q, k and v in bf16, of k and v in float32, whose
+forward reads q by plain loads; the backward's of q, k, v, o and dO in
+both dtypes). Other strides are read as they are: nothing is transposed
+or copied.
 
 ``f32_layout`` and ``f32_schedule`` state, in Python, how the float32
 kernel packs the query heads of a KV head into a block and which K/V
-tiles each block visits, with or without the per-element mask.
+tiles each block visits, with or without the per-element mask;
+``bwd_f32_schedule`` the same of the float32 backward's two kernels.
 """
 from __future__ import annotations
 
@@ -87,9 +88,12 @@ def tma_strides(shape: Sequence[int], strides: Sequence[int]) -> tuple:
                  for i, (n, st) in enumerate(zip(shape[:3], strides[:3])))
 
 
-def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tma: bool = True) -> None:
-    """Raise on anything the kernels do not take; ``tma`` False leaves out
-    the TMA checks (the float32 backward kernels read with plain loads)."""
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_by_tma: bool = False) -> None:
+    """Raise on anything the kernels do not take. On the card k and v must
+    be readable by TMA, and q too in bf16 or with ``q_by_tma`` (the
+    backward streams float32 q through a tensor map; the float32 forward
+    reads q by plain loads)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, hd)")
     B, S, H, hd = q.shape
@@ -110,32 +114,33 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tma: bool =
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim is not contiguous")
-        if tma and t.device.type == "cuda" and (t.dtype == torch.bfloat16 or name != "q"):
+        if t.device.type == "cuda" and (t.dtype == torch.bfloat16 or q_by_tma or name != "q"):
             why = tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr())
             if why is not None:
                 raise ValueError(f"{name}: the {t.dtype} kernel cannot read it: {why}")
 
 
-def f32_layout(rep: int) -> tuple:
+def f32_layout(rep: int, rows: int = autotune.FLASH_BLOCK_ROWS) -> tuple:
     """(head groups, heads per block, positions per block) of the float32
-    kernel's GQA packing: a block holds FLASH_BLOCK_ROWS query rows, the
+    kernel's GQA packing: a block holds ``rows`` query rows
+    (FLASH_BLOCK_ROWS; the backward's dQ kernel FLASH_BWD_BLOCK_ROWS), the
     positions of a tile times the heads of a group; the rep query heads of
     a KV head form as few groups as fit (one while rep <= the rows)."""
-    rows = autotune.FLASH_BLOCK_ROWS
     groups = -(-rep // rows)
     heads = -(-rep // groups)
     return groups, heads, rows // heads
 
 
-def f32_schedule(S: int, window: int, rep: int) -> list:
+def f32_schedule(S: int, window: int, rep: int, rows: int = autotune.FLASH_BLOCK_ROWS,
+                 bk: int = autotune.FLASH_BLOCK_K) -> list:
     """The float32 kernel's tile schedule, for each query tile in position
-    order: (q0, positions, [(k0, masked), ...]). A tile of FLASH_BLOCK_K
-    keys from k0 is visited when any position of the query tile sees a key
-    in it; ``masked`` is False only where every position of the tile sees
-    every key of it (below the diagonal, inside the window, below S), and
-    the kernel then skips the per-element mask."""
-    bk = autotune.FLASH_BLOCK_K
-    bq = f32_layout(rep)[2]
+    order: (q0, positions, [(k0, masked), ...]). A tile of ``bk`` keys
+    from k0 is visited when any position of the query tile (a block of
+    ``rows`` packed rows) sees a key in it; ``masked`` is False only where
+    every position of the tile sees every key of it (below the diagonal,
+    inside the window, below S), and the kernel then skips the
+    per-element mask."""
+    bq = f32_layout(rep, rows)[2]
     out = []
     for q0 in range(0, S, bq):
         k_end = min(q0 + bq, S)
@@ -147,6 +152,31 @@ def f32_schedule(S: int, window: int, rep: int) -> list:
             tiles.append((k0, not whole))
         out.append((q0, k_end - q0, tiles))
     return out
+
+
+def bwd_f32_schedule(S: int, window: int, rep: int) -> dict:
+    """The float32 backward's tile walks. "dkdv": for each block of
+    FLASH_BWD_BLOCK_ROWS keys from k0 in order, (k0, keys, [(r, q0,
+    masked), ...]): for each of the rep query heads r of the KV head, the
+    tiles of FLASH_BWD_TILE_ROWS queries from q0 that see the block (from
+    the one holding k0 to the one holding the last position within the
+    window, below S); ``masked`` is False only where every query of the
+    tile (below S) sees every key of the block. "dq": the dQ kernel's walk,
+    the forward's (``f32_schedule``) on FLASH_BWD_BLOCK_ROWS packed query
+    rows and FLASH_BWD_TILE_ROWS-key tiles, each block holding all rep
+    query heads of its positions."""
+    bk, bt = autotune.FLASH_BWD_BLOCK_ROWS, autotune.FLASH_BWD_TILE_ROWS
+    dkdv = []
+    for k0 in range(0, S, bk):
+        q_last = min(S - 1, k0 + bk - 2 + window) if window > 0 else S - 1
+        tiles = []
+        for r in range(rep):
+            for q0 in range(k0 // bt * bt, q_last + 1, bt):
+                whole = (k0 + bk - 1 <= q0 and q0 + bt <= S
+                         and (window <= 0 or q0 + bt - 1 - k0 < window))
+                tiles.append((r, q0, not whole))
+        dkdv.append((k0, min(bk, S - k0), tiles))
+    return {"dkdv": dkdv, "dq": f32_schedule(S, window, rep, bk, bt)}
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None,
@@ -201,13 +231,19 @@ _BWD_ENTRIES = {
         autotune.FLASH_BWD_TC_BLOCK_ROWS, autotune.FLASH_BWD_TC_TILE_ROWS,
         autotune.FLASH_BWD_TC_STAGES)),
     torch.float32: ("repro_flash_attention_bwd", (
-        autotune.FLASH_BWD_BLOCK_Q, autotune.FLASH_BWD_BLOCK_K, autotune.FLASH_BWD_THREADS)),
+        autotune.FLASH_BWD_BLOCK_ROWS, autotune.FLASH_BWD_TILE_ROWS, autotune.FLASH_BWD_STAGES,
+        autotune.FLASH_BWD_MICRO_ROWS, autotune.FLASH_BWD_MICRO_COLS)),
 }
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 11          # q k v o lse do dq dk dv lse2 dsum
-                 + (ctypes.c_int,) * 9             # B S H G hd, 3 tile constants, stat_s
-                 + (ctypes.POINTER(ctypes.c_longlong),)         # 24 strides
-                 + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
-                 + (ctypes.c_void_p,))                          # stream
+
+
+def _bwd_argtypes(n_tiles: int) -> tuple:
+    """ctypes argument types of a backward C entry with ``n_tiles`` tile
+    constants."""
+    return ((ctypes.c_void_p,) * 11                    # q k v o lse do dq dk dv lse2 dsum
+            + (ctypes.c_int,) * (6 + n_tiles)          # B S H G hd, tile constants, stat_s
+            + (ctypes.POINTER(ctypes.c_longlong),)     # 24 strides
+            + (ctypes.c_int, ctypes.c_float, ctypes.c_float)  # window, scale, softcap
+            + (ctypes.c_void_p,))                      # stream
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
@@ -217,8 +253,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
     log-sum-exp ``lse`` (B, H, S) (``flash_attention(..., return_lse=True)``)
     and the gradient ``do`` of the loss in o (o and do like q), each
     gradient in its input's dtype. Takes what the forward takes (dtype,
-    head dim, GQA); in bf16 on the card also what the TMA loads need, of q,
-    k, v, o and do (``tma_violation``; raises, no other path).
+    head dim, GQA); on the card also what the TMA loads need, of q, k, v,
+    o and do in either dtype (``tma_violation``; raises before any launch,
+    no other path).
 
     CUDA tensors: one call of ``csrc/flash_attention_bwd.cu``'s C entry of
     the dtype, which launches its three ``BWD_KERNELS`` in order (float32
@@ -228,15 +265,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
     ``flash_attention_bwd.kernel_launches``. CPU tensors:
     ``ref.flash_attention_bwd_ref``.
     """
-    tma = q.device.type == "cuda" and q.dtype == torch.bfloat16
-    _check_inputs(q, k, v, tma=tma)
+    _check_inputs(q, k, v, q_by_tma=True)
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not match "
                              f"q {tuple(q.shape)} {q.dtype} on {q.device}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim is not contiguous")
-        why = tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr()) if tma else None
+        why = (tma_violation(t.shape, t.stride(), t.dtype, t.data_ptr())
+               if t.device.type == "cuda" else None)
         if why is not None:
             raise ValueError(f"{name}: the {t.dtype} kernel cannot read it: {why}")
     B, S, H, hd = q.shape
@@ -262,7 +299,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
     strides = (ctypes.c_longlong * 24)(*(st for t in tensors
                                          for st in tma_strides(t.shape, t.stride())))
     entry, tiles = _BWD_ENTRIES[q.dtype]
-    fn = _launch.c_entry("flash_attention_bwd.cu", entry, _BWD_ARGTYPES)
+    fn = _launch.c_entry("flash_attention_bwd.cu", entry, _bwd_argtypes(len(tiles)))
     _launch.call(fn, q.device, *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, lse2,
                                                         dsum)),
                  B, S, H, G, hd, *tiles, stat_s, strides, w, hd ** -0.5,

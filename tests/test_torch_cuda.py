@@ -804,12 +804,20 @@ def test_int8_cache_on_the_card_matches_cpu(dev):
 # gradient at small shapes, tests/test_torch_flash_bwd_numerics.py); two
 # launches bit for bit.
 # The bf16 cases include the path shapes' small cousins: hd 80 (stablelm-3b)
-# and 128 (gemma2-27b), with a window and a softcap.
+# and 128 (gemma2-27b), with a window and a softcap. The float32 kernels'
+# design boundaries: hd 128 at rep 2 with a window (one ring stage), hd 96
+# (the widest with two) at rep 7 (the dQ kernel packs 18 positions of 7
+# heads), and S not a multiple of the 128-row blocks or the 64-row tiles
+# (S = 3 too: at S = 1 a query's one key gives dS = P (dP - D) = 0 exactly,
+# so dq and dk are rounding residue and a bar of 1e-4 of their max reads
+# that residue against itself).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,window,softcap", [
     ((2, 96, 4, 2, 16), 0, None), ((1, 256, 4, 1, 16), 16, 50.0), ((1, 1000, 8, 2, 64), 0, None),
     ((2, 512, 8, 8, 80), 0, None), ((1, 300, 4, 2, 80), 64, 50.0),
     ((1, 640, 8, 4, 128), 256, 50.0), ((1, 257, 7, 1, 112), None, None),
+    ((2, 200, 4, 2, 128), 100, None), ((1, 190, 14, 2, 96), 65, 30.0),
+    ((2, 3, 4, 2, 48), None, None),
 ])
 def test_flash_bwd_kernel_matches_plain(dev, shape, window, softcap, dtype):
     B, S, H, G, hd = shape
@@ -861,15 +869,17 @@ def test_flash_forward_lse_keeps_o_bits_and_matches_plain(dev, shape, window, so
     assert float(((lse - want).abs() / want.abs().clamp_min(1.0)).max()) <= 1e-5
 
 
-def test_flash_bwd_bf16_refuses_what_tma_cannot_read(dev):
-    """The bf16 backward reads q, k, v and dO through tensor maps: a dO
-    whose base sits 8 bytes off a 16-byte boundary raises before any
-    launch."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_bf16_refuses_what_tma_cannot_read(dev, dtype):
+    """The backward reads q, k, v and dO through tensor maps in either
+    dtype: a dO whose base sits 8 bytes off a 16-byte boundary raises
+    before any launch."""
     B, S, H, G, hd = 1, 64, 2, 1, 64
-    q, k, v = _qkv(_rng(33), B, S, H, G, hd, dev, torch.bfloat16)
+    q, k, v = _qkv(_rng(33), B, S, H, G, hd, dev, dtype)
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
     n = B * S * H * hd
-    do = torch.randn(n + 8, device=dev).to(torch.bfloat16)[4:4 + n].view(B, S, H, hd)
+    off = 8 // torch.empty((), dtype=dtype).element_size()
+    do = torch.randn(n + 8, device=dev).to(dtype)[off:off + n].view(B, S, H, hd)
     assert do.data_ptr() % 16 == 8
     before = tfa.flash_attention_bwd.launches
     with pytest.raises(ValueError, match="multiple of 16"):

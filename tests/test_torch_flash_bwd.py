@@ -23,7 +23,7 @@ import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.models import attention as tattn
 
 F32_RTOL_OF_MAX = 1e-5
@@ -161,3 +161,77 @@ def test_bwd_ref_bf16_rounds_float32_gradients_once():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert torch.equal(g, w.to(torch.bfloat16))
+
+
+# ---------------------------------------------------- the float32 kernels' walks
+# global, a few windows, and the windows whose edges fall on a tile edge:
+# 2 (the last query a 128-key block sees ends a 64-query tile), 65 (the
+# first key a 128-position block sees starts a 64-key tile) and 191 (a tile
+# seen whole up to the window's last pair)
+WALK_WINDOWS = [0, 2, 16, 65, 191, 1024]
+def _visible(S, window):
+    """The brute-force mask over (query, key) positions 0..S-1."""
+    query = np.arange(S)[:, None]
+    key = np.arange(S)[None, :]
+    seen = key <= query
+    if window > 0:
+        seen &= query - key < window
+    return seen
+
+
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("window", WALK_WINDOWS)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000])
+def test_bwd_f32_dkdv_walk_matches_brute_force_mask(S, window, rep):
+    """The dK/dV kernel's walk (each block of keys over the rep query heads
+    of its KV head and the query tiles that see it) covers every visible
+    (head, query, key) triple exactly once; no query tile it skips holds a
+    visible pair of the block, none it visits holds none; and "unmasked"
+    is set only on tiles where every pair of the block's keys and the
+    tile's queries is visible and below S."""
+    bk, bt = autotune.FLASH_BWD_BLOCK_ROWS, autotune.FLASH_BWD_TILE_ROWS
+    seen = _visible(S, window)
+    walk = fa.bwd_f32_schedule(S, window, rep)["dkdv"]
+    assert [(k0, n) for k0, n, _ in walk] == [(k0, min(bk, S - k0)) for k0 in range(0, S, bk)]
+    count = np.zeros((rep, S, S), np.int64)
+    for k0, n, tiles in walk:
+        keys = slice(k0, k0 + n)
+        for r in range(rep):
+            visited = [q0 for rr, q0, _ in tiles if rr == r]
+            want = [q0 for q0 in range(0, S, bt) if seen[q0:q0 + bt, keys].any()]
+            assert visited == want, (k0, r, visited)
+        for r, q0, masked in tiles:
+            count[r, q0:q0 + bt, keys] += 1
+            if not masked:
+                assert q0 + bt <= S and k0 + bk <= S and seen[q0:q0 + bt, k0:k0 + bk].all()
+    assert (count[:, seen] == 1).all() and count.max() <= 1
+
+
+@pytest.mark.parametrize("rep", [1, 2, 7])
+@pytest.mark.parametrize("window", WALK_WINDOWS)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000])
+def test_bwd_f32_dq_walk_matches_brute_force_mask(S, window, rep):
+    """The dQ kernel's walk (each block of packed rows: the positions of a
+    tile times all rep query heads of a KV head, over the key tiles its
+    rows see) covers every visible (head, query, key) triple exactly once;
+    no key tile it skips holds a visible pair of the block, none it visits
+    holds none; and "unmasked" is set only on tiles where every position
+    of the block sees every key of the tile, below S."""
+    bt = autotune.FLASH_BWD_TILE_ROWS
+    groups, heads, bq = fa.f32_layout(rep, autotune.FLASH_BWD_BLOCK_ROWS)
+    assert groups == 1 and heads == rep and bq * rep <= autotune.FLASH_BWD_BLOCK_ROWS
+    seen = _visible(S, window)
+    walk = fa.bwd_f32_schedule(S, window, rep)["dq"]
+    assert [(q0, n) for q0, n, _ in walk] == [(q0, min(bq, S - q0)) for q0 in range(0, S, bq)]
+    count = np.zeros((S, S), np.int64)
+    for q0, n, tiles in walk:
+        rows = slice(q0, q0 + n)
+        want = [k0 for k0 in range(0, S, bt) if seen[rows, k0:k0 + bt].any()]
+        assert [k0 for k0, _ in tiles] == want, (q0, tiles)
+        for k0, masked in tiles:
+            count[rows, k0:k0 + bt] += 1
+            if not masked:
+                assert k0 + bt <= S and seen[rows, k0:k0 + bt].all()
+    # every block holds all rep heads of its positions: each head's count
+    # is this one
+    assert (count[seen] == 1).all() and count.max() <= 1

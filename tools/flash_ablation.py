@@ -3,21 +3,23 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/flash_ablation.py [--parent DIR]
+    python3 tools/flash_ablation.py [--parent DIR] [--only A,B]
+    python3 tools/flash_ablation.py --bwd [--parent DIR] [--only A,B]
 
-Builds src/repro_torch/kernels/csrc/flash_attention.cu as it is
+Forward (the default). Builds src/repro_torch/kernels/csrc/flash_attention.cu as it is
 ("kernel") and variants made from it by text edits, each with nvcc into
 its own library (all at once), and times the bf16 kernel of each bf16
 variant and the float32 kernel of each float32 variant at gemma2-27b's
 prefill shape (1, 8192, 32, 16, 128): softcap 50 global and with window
 4096, and no softcap, in turns (every variant, then again in reverse
 order; each time the median of 20 calls between CUDA events). With
-``--parent DIR`` (a checkout of another commit) its flash_attention.cu is
-built too, as the bf16 variant "parent", so the two bf16 kernels are timed
-in turns in one call (change, parent, parent, change); ``--only parent``
-builds and times those two alone. The parent's C entries must take the
-row log-sum-exp pointer beside o, and it must include csrc/hopper.cuh, as
-these do.
+``--parent DIR`` (a checkout of another commit, unpacked by ``git
+archive`` into a git-ignored directory such as ``build/``) its
+flash_attention.cu is built too, against its own csrc/hopper.cuh, as the
+variant "parent" of both dtypes, so the two kernels of each dtype are timed
+in turns in one call (change, parent, parent, change) and compared bit for
+bit; ``--only parent`` builds and times those alone. The parent's C
+entries must take the row log-sum-exp pointer beside o, as these do.
 
 bf16 variants (the tensor-core kernel):
 
@@ -58,16 +60,36 @@ one_chain (which sums l in another order) keep the arithmetic. Prints one
 JSON line, and the card's name, power limit and SM clock. Needs no
 network.
 
+Backward (``--bwd``): the float32 gradient kernels of
+csrc/flash_attention_bwd.cu the same way, at chip_smoke.py's three
+BWD_PATH_SHAPES (stablelm-3b; gemma2-27b global and with window 4096, both
+with softcap 50, and the global one also without it): each variant's
+float32 instantiations' registers and spill bytes, its dq, dk, dv bit for
+bit against "kernel" and over chip_smoke's bar (each within
+BWD_F32_RTOL_OF_MAX of its largest magnitude of the plain version's), and
+its time in turns (median of BWD_REPS calls) with each kernel's device
+time from torch.profiler. ``--parent DIR`` builds the parent's
+flash_attention_bwd.cu and calls its float32 C entry with the parent's
+own tile constants (read from its kernels/autotune.py). Its variants (the
+score products' chunk loop, left rolled in the kernel, unrolled):
+
+  bwd_chunks_unrolled  over all 8 of a box's four-column chunks
+  bwd_chunks_by2       over 2
+
 The variants are text edits of the kernel's source: each edit must apply
 exactly once, and one that no longer does after a change to the kernel
 raises ValueError naming it; the variant has to be written anew against
-the new source.
+the new source. Build, bar and spill checks of the kernels as shipped are
+chip_smoke.py's.
 """
 from __future__ import annotations
 
+import ast
 import ctypes
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 
@@ -75,8 +97,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
+BWD_SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "flash_attention_bwd.cu")
 OUT = os.path.join(ROOT, "build", "flash_ablation")
 REPS = 20
+BWD_REPS = 10
 
 
 def _edit(text: str, pairs) -> str:
@@ -178,52 +202,210 @@ def bf16_variants(src: str) -> dict:
     return v
 
 
-def main() -> int:
-    import argparse
+def bwd_variants(src: str) -> dict:
+    """The float32 backward's variants (text edits of ``src``), "kernel"
+    first."""
+    loop = "#pragma unroll 1\n  for (int ch = 0; ch < kChunks; ++ch) {"
+    return {"kernel": src,
+            "bwd_chunks_unrolled": _edit(src, [(loop, loop.replace(" 1\n", "\n"))]),
+            "bwd_chunks_by2": _edit(src, [(loop, loop.replace(" 1\n", " 2\n"))])}
 
-    import torch
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout whose flash_attention.cu is built as the "
-                                     "bf16 variant 'parent'")
-    ap.add_argument("--only", help="comma-separated variants to build and time besides "
-                                   "'kernel' (default: every one)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("flash_ablation: no CUDA device", file=sys.stderr)
-        return 2
-    import chip_smoke
-    from repro_torch.device import gpu_name_and_power_limit, nvcc_path
-    from repro_torch.kernels import autotune, build, ref
-    from repro_torch.kernels import flash_attention as fa
-
-    src = open(SOURCE).read()
-    todo = bf16_variants(src)
-    f32_names = ["kernel", *f32_variants(src)]
-    todo.update(f32_variants(src))
-    if args.parent:
-        todo["parent"] = open(os.path.join(args.parent, os.path.relpath(SOURCE, ROOT))).read()
-    if args.only:
-        keep = {"kernel", *args.only.split(",")}
-        todo = {n: t for n, t in todo.items() if n in keep}
-        f32_names = [n for n in f32_names if n in keep]
-    bf16_names = [n for n in todo if n not in f32_names[1:]]
+def build_all(todo: dict, include: dict) -> dict:
+    """{name: (library path, nvcc's log)} of each source text in ``todo``,
+    all compiled at once with the build's flags into OUT, each against the
+    csrc directory ``include[name]`` (this checkout's by default)."""
+    from repro_torch.device import nvcc_path
+    from repro_torch.kernels import build
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, text in todo.items():
         cu, lib = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT, f"{name}.so")
         with open(cu, "w") as f:
             f.write(text)
-        # the variants include csrc/hopper.cuh from the sources' directory
-        procs[name] = (subprocess.Popen([nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-                                         "-o", lib, cu],
-                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    fns, ptxas = {torch.bfloat16: {}, torch.float32: {}}, {}
+        procs[name] = (subprocess.Popen(
+            [nvcc_path(), *build.NVCC_FLAGS, "-I", str(include.get(name, build.CSRC)), "-o", lib,
+             cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    out = {}
     for name, (proc, lib) in procs.items():
         log = proc.communicate(timeout=build.NVCC_TIMEOUT_S)[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-4000:]}")
+        out[name] = (lib, log)
+    return out
+
+
+def parent_bwd_tiles(parent: str) -> tuple:
+    """The float32 backward's tile constants of the checkout at ``parent``,
+    read from its kernels/autotune.py without importing it: the FFMA
+    grid's three (block_q, block_k, threads) or the TMA ring's five."""
+    path = os.path.join(parent, "src", "repro_torch", "kernels", "autotune.py")
+    consts = {t.id: node.value.value for node in ast.parse(open(path).read()).body
+              if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant)
+              for t in node.targets if isinstance(t, ast.Name)}
+    names = (("FLASH_BWD_BLOCK_Q", "FLASH_BWD_BLOCK_K", "FLASH_BWD_THREADS")
+             if "FLASH_BWD_BLOCK_Q" in consts else
+             ("FLASH_BWD_BLOCK_ROWS", "FLASH_BWD_TILE_ROWS", "FLASH_BWD_STAGES",
+              "FLASH_BWD_MICRO_ROWS", "FLASH_BWD_MICRO_COLS"))
+    return tuple(consts[n] for n in names)
+
+
+def bwd_call(fn, tiles: tuple):
+    """A function of (q, k, v, o, lse, do, window, softcap) that launches
+    the float32 backward C entry ``fn`` with ``tiles`` as the wrapper
+    (kernels/flash_attention.py:flash_attention_bwd) does."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_attention as fa
+    fn.argtypes, fn.restype = list(fa._bwd_argtypes(len(tiles))), ctypes.c_int
+
+    def run(q, k, v, o, lse, do, window, softcap):
+        B, S, H, hd = q.shape
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        rows = autotune.FLASH_BWD_TC_BLOCK_ROWS
+        stat_s = -(-S // rows) * rows
+        lse2, dsum = torch.empty((2, B * H, stat_s), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 24)(*(st for t in (q, k, v, o, do, dq, dk, dv)
+                                             for st in fa.tma_strides(t.shape, t.stride())))
+        rc = fn(*(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, lse2, dsum)),
+                B, S, H, k.shape[2], hd, *tiles, stat_s, strides, window, hd ** -0.5,
+                0.0 if softcap is None else float(softcap),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the backward's launch failed with error {rc}")
+        return dq, dk, dv
+    return run
+
+
+def kernel_split(fn) -> dict:
+    """Device time in ms of each flash_bwd kernel of one call of ``fn``,
+    from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        hit = re.search(r"flash_bwd_\w+?_kernel", ev.key)
+        if hit:
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            out[hit.group(0)] = out.get(hit.group(0), 0.0) + us / 1e3
+    return out
+
+
+def bwd_main(args) -> int:
+    """The backward mode (module docstring)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    todo = bwd_variants(open(BWD_SOURCE).read())
+    tiles = {n: fa._BWD_ENTRIES[torch.float32][1] for n in todo}
+    include = {}
+    if args.parent:
+        todo["parent"] = open(os.path.join(args.parent, os.path.relpath(BWD_SOURCE, ROOT))).read()
+        tiles["parent"] = parent_bwd_tiles(args.parent)
+        include["parent"] = os.path.dirname(os.path.join(args.parent,
+                                                         os.path.relpath(BWD_SOURCE, ROOT)))
+    if args.only:
+        keep = {"kernel", *args.only.split(",")}
+        todo = {n: t for n, t in todo.items() if n in keep}
+    built = build_all(todo, include)
+    regs, fns = {}, {}
+    for name, (lib, log) in built.items():
+        every = chip_smoke.flash_bwd_kernels(chip_smoke.ptxas_by_kernel(log),
+                                             chip_smoke.sass_ops_by_kernel(lib))
+        regs[name] = {k: [e["registers"], e["spill_store_bytes"]] for k, e in every.items()
+                      if "wgmma" not in k and "dsum" not in k}
+        fns[name] = bwd_call(ctypes.CDLL(lib).repro_flash_attention_bwd, tiles[name])
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(chip_smoke.LM_SEED)
+    times, splits, same, over_bar = {}, {}, {}, {}
+    for label, (shape, window, cap) in chip_smoke.BWD_PATH_SHAPES.items():
+        B, S, H, G, hd = shape
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev)
+                       for sh in ((B, S, H, hd), (B, S, G, hd), (B, S, G, hd), (B, S, H, hd)))
+        for c in ((cap, None) if cap is not None else (None,)):
+            case = label if c == cap else f"{label}_no_softcap"
+            o, lse = fa.flash_attention(q, k, v, window=window, softcap=c, return_lse=True)
+            call = lambda f: f(q, k, v, o, lse, do, window, c)
+            base = call(fns["kernel"])
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=window, softcap=c)
+            outs = {name: call(f) for name, f in fns.items()}
+            same[case] = {n: all(torch.equal(a, b) for a, b in zip(got, base))
+                          for n, got in outs.items()}
+            over_bar[case] = {n: max(float((a - w).abs().max())
+                                     / (chip_smoke.BWD_F32_RTOL_OF_MAX * float(w.abs().max()))
+                                     for a, w in zip(got, want)) for n, got in outs.items()}
+            del base, want, outs
+            times[case] = {n: [] for n in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                times[case][name].append(chip_smoke.device_ms(lambda: call(fns[name]),
+                                                              BWD_REPS))
+            splits[case] = {n: kernel_split(lambda: call(f)) for n, f in fns.items()}
+            del o, lse
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    print(gpu_name_and_power_limit())
+    print(json.dumps({"mode": "bwd", "shapes": {l: list(s) for l, s in
+                                                 chip_smoke.BWD_PATH_SHAPES.items()},
+                      "times_ms": times,
+                      "median_ms": {c: {n: statistics.median(m) for n, m in t.items()}
+                                    for c, t in times.items()},
+                      "kernels_ms": splits, "bitwise_equal_to_kernel": same,
+                      "err_over_bar": over_bar, "registers_spill_bytes": regs,
+                      "timing": f"median of {BWD_REPS} calls between CUDA events, in turns"}))
+    bad = [(c, n) for c, e in over_bar.items() for n, x in e.items() if not x <= 1.0]
+    return 1 if bad else 0
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout whose kernel is built as the variant 'parent'")
+    ap.add_argument("--only", help="comma-separated variants to build and time besides "
+                                   "'kernel' (default: every one)")
+    ap.add_argument("--bwd", action="store_true", help="the float32 backward kernels instead "
+                                                       "of the forward's")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_ablation: no CUDA device", file=sys.stderr)
+        return 2
+    if args.bwd:
+        return bwd_main(args)
+    import chip_smoke
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    src = open(SOURCE).read()
+    todo = bf16_variants(src)
+    f32_names = ["kernel", *f32_variants(src)]
+    todo.update(f32_variants(src))
+    include = {}
+    if args.parent:
+        todo["parent"] = open(os.path.join(args.parent, os.path.relpath(SOURCE, ROOT))).read()
+        include["parent"] = os.path.dirname(os.path.join(args.parent, os.path.relpath(SOURCE, ROOT)))
+        f32_names.append("parent")
+    if args.only:
+        keep = {"kernel", *args.only.split(",")}
+        todo = {n: t for n, t in todo.items() if n in keep}
+        f32_names = [n for n in f32_names if n in keep]
+    bf16_names = [n for n in todo if n == "parent" or n not in f32_names[1:]]
+    fns, ptxas = {torch.bfloat16: {}, torch.float32: {}}, {}
+    for name, (lib, log) in build_all(todo, include).items():
         ptxas[name] = (chip_smoke.flash_kernel_ptxas(log, "wgmma_kernelILi128ELb1")
                        + chip_smoke.flash_kernel_ptxas(log, "f32_kernelILi128E"))
         for dtype, names in ((torch.bfloat16, bf16_names), (torch.float32, f32_names)):
