@@ -139,7 +139,10 @@ Phases, each printing one JSON line:
            tokens; mamba2 and hymba: prefill(S - 256) + 256 teacher-forced
            steps against forward(S); qwen2-vl: the kernel's prefill
            against the plain attention's), the MoE layer against its
-           expert-parallel local step (kept pairs exact), and the Engine
+           expert-parallel local step (kept pairs exact) and against
+           apply_moe_ep over a (data 1, model 4) mesh of the card (dbrx)
+           or (1, 8) (kimi) (kept pairs exact; float32 within
+           MOE_ORACLE_RTOL, bf16 recorded), and the Engine
            (8 requests over 4 slots, each against the same request alone in
            a fresh Engine; musicgen's and MoE's first tokens also against
            prefill's).
@@ -164,8 +167,15 @@ Phases, each printing one JSON line:
            launch/train.py's build and the Trainer (4 x 4096 tokens, 1 +
            3 steps: ms a step, tokens/s, peak memory, 2 x 32 forward and
            32 backward calls (3 kernels each) a step, one step under the profiler for
-           the backward kernels' share); every family's reduced config,
-           one train step on the card against the CPU; the Trainer's
+           the backward kernels' share), and on the parameters it trained
+           (part "mesh"): models.pipeline at 32 layers on 4 stages of the
+           card in bf16 (bit for bit stack_forward over its microbatches,
+           gradients within 2 bf16 ulps, the flash launches counted) and
+           at 4 layers in float32 (against stack_forward over the whole
+           batch), moe.apply_mlp_ep at tp 4 against swiglu_apply, and
+           launch.elastic's reshard and rescale_checkpoint from a (8, 1)
+           mesh of the card onto (2, 4), bit for bit; every family's
+           reduced config, one train step on the card against the CPU; the Trainer's
            restart on the card, bit for bit; 25 steps with compressed
            gradients.
 
@@ -577,6 +587,47 @@ TRAIN_RESTART_STEPS = 8
 TRAIN_RESTART_EVERY = 4
 TRAIN_RESTART_FAIL_AT = 5
 TRAIN_COMPRESS_STEPS = 25
+# Phase train, part "mesh": the multi-device modules on one card, on the
+# parameters stablelm-3b just trained (its optimizer moments freed).
+# (a) models.pipeline at full depth in bf16: MESH_PIPE_STAGES stages of 8
+# layers on ["cuda"] * 4, MESH_PIPE_MICRO microbatches of MESH_PIPE_TOKENS:
+# the forward bit for bit stack_forward over the same microbatches (the
+# same kernels on the same shapes in the same order; its distance from the
+# whole batch's stack_forward recorded, cuBLAS meeting other row counts
+# there), every gradient leaf within MESH_PIPE_BF16_ULPS bf16 ulps of its
+# largest magnitude of the microbatched reference's (the same terms summed
+# in another order), wq / wk / wv of every layer non-zero, and exactly
+# 32 x 4 forward calls, 32 x 4 backward calls and 32 x 4 x 3 backward
+# kernels; (b) the first MESH_PIPE_F32_LAYERS layers cast to float32, 4
+# stages, MESH_PIPE_F32_MICRO microbatches of MESH_PIPE_F32_TOKENS against
+# stack_forward over the whole batch (output MESH_F32_RTOL_OF_MAX, each
+# gradient leaf TRAIN_GRAD_RTOL_OF_MAX of its largest magnitude: phase
+# train's CPU bars); (c) moe.apply_mlp_ep at tp MESH_MLP_TP on a float32
+# copy of layer 0's MLP (d_ff 6912: 1728 a shard), 1 x MESH_MLP_TOKENS,
+# against swiglu_apply (MESH_F32_RTOL_OF_MAX of the largest magnitude);
+# (d) launch.elastic: the reduced config's parameters placed on a
+# MESH_RESHARD_FROM mesh of the card, checkpointed, and rescaled onto
+# MESH_RESHARD_TO: every leaf bit for bit after a gather, every shard of
+# the shape its sharding gives and on the card.
+MESH_PIPE_STAGES = 4
+MESH_PIPE_MICRO = 4
+MESH_PIPE_TOKENS = (4, 1024)
+MESH_PIPE_BF16_ULPS = 2
+MESH_PIPE_F32_LAYERS = 4
+MESH_PIPE_F32_MICRO = 2
+MESH_PIPE_F32_TOKENS = (2, 1024)
+MESH_F32_RTOL_OF_MAX = 1e-5
+MESH_MLP_TP = 4
+MESH_MLP_TOKENS = 4096
+MESH_RESHARD_FROM = (8, 1)
+MESH_RESHARD_TO = (2, 4)
+MESH_TIMING_REPS = 3
+# lm_families: apply_moe_ep on the first layer's 4096 tokens at the
+# published capacity factor (1.25) over a (data 1, model tp) mesh of the
+# card, against apply_moe: kept (token, expert) pairs equal, float32 within
+# MOE_ORACLE_RTOL of max |out| (dbrx; kimi's float32 experts do not fit
+# beside its bf16 ones), bf16 recorded
+MOE_EP_MESHES = {"dbrx-132b": (1, 4), "kimi-k2-1t-a32b": (1, 8)}
 
 # The job lifecycle at benchmarks/bench_lifecycle.py:27 (the paper's
 # evaluation scale, work_mean 1200: jobs hold resources for many slots and
@@ -1963,14 +2014,38 @@ def moe_oracle(torch, params, cfg, dev, spawn_key) -> dict:
     local, local_kept = moe._local_dispatch_combine(p["moe"], h, k, cf, 0, E, E, return_kept=True)
     if "shared" in p["moe"]:
         local = local + moe._shared(p["moe"]["shared"], h)
-    return {"dtype": str(out.dtype).split(".")[-1], "tokens": B * S, "experts": E, "top_k": k,
-            "capacity_factor": cf, "capacity": moe.capacity(B * S, k, E, cf),
-            "kept_pairs_equal": bool(torch.equal(kept, local_kept)),
-            "kept_assignments": int(kept.sum()),
-            "dropped_share": 1.0 - int(kept.sum()) / (B * S * k),
-            "max_abs_diff": float((out.float() - local.float()).abs().max()),
-            "max_abs_out": float(out.float().abs().max()),
-            "finite": bool(torch.isfinite(out).all())}
+    res = {"dtype": str(out.dtype).split(".")[-1], "tokens": B * S, "experts": E, "top_k": k,
+           "capacity_factor": cf, "capacity": moe.capacity(B * S, k, E, cf),
+           "kept_pairs_equal": bool(torch.equal(kept, local_kept)),
+           "kept_assignments": int(kept.sum()),
+           "dropped_share": 1.0 - int(kept.sum()) / (B * S * k),
+           "max_abs_diff": float((out.float() - local.float()).abs().max()),
+           "max_abs_out": float(out.float().abs().max()),
+           "finite": bool(torch.isfinite(out).all())}
+    del local, local_kept
+    res["ep"] = moe_ep_check(torch, p["moe"], h.reshape(B, S, d), cfg, dev, out, kept)
+    return res
+
+
+def moe_ep_check(torch, p, x, cfg, dev, want, want_kept) -> dict:
+    """apply_moe_ep over a MOE_EP_MESHES[cfg.name] mesh of the card against
+    apply_moe's output ``want`` and kept pairs ``want_kept`` on the same
+    tokens (one data shard: the same capacity)."""
+    from repro_torch.models import moe
+    from repro_torch.train.meshctx import make_mesh
+
+    shape = MOE_EP_MESHES[cfg.name]
+    mesh = make_mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, kept = moe.apply_moe_ep(p, x, cfg, mesh, return_kept=True)
+    torch.cuda.synchronize()
+    return {"mesh": list(shape), "experts_per_shard": cfg.n_experts // shape[1],
+            "seconds": time.perf_counter() - t0,
+            "kept_pairs_equal": bool(torch.equal(kept, want_kept)),
+            "max_abs_diff": float((got.reshape(want.shape).float() - want.float()).abs().max()),
+            "max_abs_out": float(want.float().abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
 
 
 def engine_run(torch, cfg, params, prompts, dev) -> dict:
@@ -2190,7 +2265,8 @@ def lm_families_phase(torch, dev) -> dict:
         line["bars"] = {"bf16_max_abs_dlogit": bar, "f32_max_abs_dlogit": LM_F32_DECODE_ATOL,
                         "engine_vs_prefill_max_abs_dlogit": FAMILY_ENGINE_PREFILL_ATOL[arch],
                         "bf16_f32_ssd_max_abs_dlogit": SSM_F32_SSD_ATOL,
-                        "moe_oracle_f32_rtol": MOE_ORACLE_RTOL, "tie_gap": "2 x the bar"}
+                        "moe_oracle_f32_rtol": MOE_ORACLE_RTOL,
+                        "moe_ep_f32_rtol": MOE_ORACLE_RTOL, "tie_gap": "2 x the bar"}
         line["phase_s"] = time.perf_counter() - t_arch
         emit(line)
         lines[arch] = line
@@ -2206,6 +2282,14 @@ def lm_families_phase(torch, dev) -> dict:
             o = line["moe_oracle_f32"]
             check(o["max_abs_diff"] <= MOE_ORACLE_RTOL * o["max_abs_out"],
                   f"lm_families {arch}: apply_moe vs _local_dispatch_combine {o}")
+        for key in ("moe_oracle_f32", "moe_oracle_bf16"):
+            if key in line:
+                ep = line[key]["ep"]
+                check(ep["kept_pairs_equal"] and ep["finite"],
+                      f"lm_families {arch} {key}: apply_moe_ep's kept pairs differ {ep}")
+                check(key == "moe_oracle_bf16"
+                      or ep["max_abs_diff"] <= MOE_ORACLE_RTOL * ep["max_abs_out"],
+                      f"lm_families {arch}: apply_moe_ep vs apply_moe {ep}")
     return {"phase": "lm_families", "phase_s": time.perf_counter() - t_phase,
             "archs": list(lines),
             "bf16_flash_launches": {a: ln["bf16_flash_launches"] for a, ln in lines.items()}}
@@ -2555,7 +2639,11 @@ def train_full(torch, dev) -> dict:
         batch = batch_at(data, steps, trainer.device)
         profile_ = train_step_profile(
             torch, lambda: trainer.step_fn(state["params"], state["opt"], batch))
-        del out, state, batch, trainer
+        params = state["params"]
+        del out, state, batch, trainer  # the optimizer moments go with the state
+    torch.cuda.empty_cache()
+    mesh_line = train_mesh_check(torch, dev, cfg, params)
+    del params
     torch.cuda.empty_cache()
     timed = [r["ms"] for r in rows[TRAIN_WARMUP_STEPS:]]
     ms = statistics.median(timed)
@@ -2567,8 +2655,10 @@ def train_full(torch, dev) -> dict:
             "remat": [cfg.remat, cfg.remat_policy], "steps": rows,
             "ms_per_step": ms, "ms_per_step_timed": timed, "tokens_per_s": tokens / (ms / 1e3),
             "peak_memory_gb": peak / 1e9, "checkpoints_written": written,
-            "profile": profile_, "run_s": run_s, "phase_s": time.perf_counter() - t_phase}
+            "profile": profile_, "run_s": run_s, "phase_s": time.perf_counter() - t_phase,
+            "mesh_s": mesh_line["phase_s"]}
     emit(line)
+    line["mesh"] = mesh_line
     check(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
           f"train full: losses {[r['loss'] for r in rows]}")
     layers = published.n_layers
@@ -2580,6 +2670,220 @@ def train_full(torch, dev) -> dict:
     check(not written, f"train full: checkpoints written: {written}")
     check(n_params == sum(t.numel() for t in _leaves(M.param_shapes(published))),
           f"train full: {n_params} parameters trained")
+    return line
+
+
+def _timed(torch, fn, reps: int = MESH_TIMING_REPS):
+    """fn's result and its median host time to completion on the card, ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _grad_run(torch, forward, leaves: dict):
+    """forward()'s output and the gradient of sum(out^2) (in float32) with
+    respect to ``leaves`` {name: tensor}, with the forward's and the
+    backward's host times to completion, ms."""
+    for t in leaves.values():
+        t.grad = None
+        t.requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = forward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = {n: t.grad for n, t in leaves.items()}
+    for t in leaves.values():
+        t.grad = None
+        t.requires_grad_(False)
+    return out.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _leaf_errors(got: dict, want: dict, unit) -> dict:
+    """Per leaf: max |got - want| in units of ``unit(max |want|)``."""
+    return {n: float((got[n].float() - w.float()).abs().max())
+            / max(unit(float(w.float().abs().max())), 1e-30) for n, w in want.items()}
+
+
+def train_mesh_check(torch, dev, cfg, params) -> dict:
+    """Phase train, part "mesh" (the multi-device modules on one card; the
+    constants' comment): the pipeline in bf16 at full depth and in float32
+    at 4 layers, apply_mlp_ep, reshard and rescale_checkpoint."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import elastic
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models import pipeline as pp
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import swiglu_apply
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import sharding as shd
+    from repro_torch.train.meshctx import make_mesh
+
+    t_phase = time.perf_counter()
+    counts = lambda: {"flash_attention_bf16": fa.flash_attention.kernel_launches["bf16"],
+                      "flash_attention_f32": fa.flash_attention.kernel_launches["float32"],
+                      "flash_attention_bwd_bf16": fa.flash_attention_bwd.kernel_launches["bf16"],
+                      "flash_attention_bwd_f32": fa.flash_attention_bwd.kernel_launches["float32"]}
+    before = counts()
+    line = {"phase": "train", "part": "mesh", "arch": cfg.name, "part_s": {}}
+    mark = lambda name, t: line["part_s"].__setitem__(name, time.perf_counter() - t)
+    stages = make_mesh((MESH_PIPE_STAGES,), ("model",), [dev] * MESH_PIPE_STAGES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    cfg = dataclasses.replace(cfg, remat=False)  # GPipe keeps its activations
+
+    # (a) bf16, every layer
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = MESH_PIPE_TOKENS
+    Bm = B // MESH_PIPE_MICRO
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    blocks = [tree_map(lambda t: t.detach(), b) for b in params["blocks"]]
+    run_pipe = lambda: pp.pipeline_forward(blocks, cfg, x, pos, stages, MESH_PIPE_MICRO)
+    run_micro = lambda: torch.cat([tf.stack_forward(blocks, cfg, xm, pos[:Bm])
+                                   for xm in x.split(Bm)])
+    with torch.no_grad():
+        fwd, fwd_ms = _timed(torch, run_pipe)
+        micro, micro_ms = _timed(torch, run_micro)
+        whole, whole_ms = _timed(torch, lambda: tf.stack_forward(blocks, cfg, x, pos))
+    leaves = named_leaves(blocks)
+    _grad_run(torch, run_pipe, leaves)  # warm-up: autograd's first pass at these shapes
+    n0 = (fa.flash_attention.kernel_launches["bf16"], fa.flash_attention_bwd.launches,
+          fa.flash_attention_bwd.kernel_launches["bf16"])
+    out, g_pipe, pipe_fwd_ms, pipe_bwd_ms = _grad_run(torch, run_pipe, leaves)
+    launches = {"forward": fa.flash_attention.kernel_launches["bf16"] - n0[0],
+                "backward_calls": fa.flash_attention_bwd.launches - n0[1],
+                "backward_kernels": fa.flash_attention_bwd.kernel_launches["bf16"] - n0[2]}
+    _, g_micro, micro_fwd_ms, micro_bwd_ms = _grad_run(torch, run_micro, leaves)
+    ulps = _leaf_errors(g_pipe, g_micro, bf16_ulp)
+    del g_micro
+    _, g_whole, whole_fwd_ms, whole_bwd_ms = _grad_run(
+        torch, lambda: tf.stack_forward(blocks, cfg, x, pos), leaves)
+    ulps_whole = _leaf_errors(g_pipe, g_whole, bf16_ulp)
+    del g_whole
+    qkv = {n: float(g.float().abs().max()) for n, g in g_pipe.items()
+           if n.split("/")[-1] in ("wq", "wk", "wv")}
+    line["bf16"] = {
+        "layers": cfg.n_layers, "stages": MESH_PIPE_STAGES, "microbatches": MESH_PIPE_MICRO,
+        "tokens": [B, S], "forward_equal_microbatched": bool(torch.equal(fwd, micro)),
+        "grad_run_forward_equal": bool(torch.equal(out, micro)),
+        "max_abs_diff_vs_whole_batch": float((fwd.float() - whole.float()).abs().max()),
+        "max_abs_out": float(whole.float().abs().max()),
+        "worst_leaf": max(ulps, key=ulps.get), "worst_grad_bf16_ulps_of_max": max(ulps.values()),
+        "worst_grad_bf16_ulps_of_max_vs_whole_batch": max(ulps_whole.values()),
+        "qkv_grads": len(qkv), "qkv_grad_min_of_max_abs": min(qkv.values()),
+        "flash_launches": launches, "ms": {
+            "pipeline_forward": fwd_ms, "microbatched_forward": micro_ms,
+            "whole_batch_forward": whole_ms, "pipeline_grad_forward": pipe_fwd_ms,
+            "pipeline_backward": pipe_bwd_ms, "microbatched_grad_forward": micro_fwd_ms,
+            "microbatched_backward": micro_bwd_ms, "whole_batch_grad_forward": whole_fwd_ms,
+            "whole_batch_backward": whole_bwd_ms},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del x, fwd, micro, whole, out, g_pipe, leaves
+    torch.cuda.empty_cache()
+    mark("pipeline_bf16", t0)
+
+    # (b) float32, the first layers
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, n_layers=MESH_PIPE_F32_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    blocks32 = [tree_map(lambda t: t.float(), b) for b in blocks[:MESH_PIPE_F32_LAYERS]]
+    B, S = MESH_PIPE_F32_TOKENS
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    leaves = named_leaves(blocks32)
+    n0 = fa.flash_attention.kernel_launches["float32"], fa.flash_attention_bwd.launches
+    got, g_got, _, _ = _grad_run(
+        torch, lambda: pp.pipeline_forward(blocks32, cfg32, x, pos, stages, MESH_PIPE_F32_MICRO),
+        leaves)
+    f32_launches = {"forward": fa.flash_attention.kernel_launches["float32"] - n0[0],
+                    "backward_calls": fa.flash_attention_bwd.launches - n0[1]}
+    want, g_want, _, _ = _grad_run(torch, lambda: tf.stack_forward(blocks32, cfg32, x, pos), leaves)
+    errs = _leaf_errors(g_got, g_want, lambda m: m)
+    line["float32"] = {
+        "layers": MESH_PIPE_F32_LAYERS, "stages": MESH_PIPE_STAGES,
+        "microbatches": MESH_PIPE_F32_MICRO, "tokens": [B, S],
+        "out_err_of_max": float((got - want).abs().max() / want.abs().max()),
+        "worst_leaf": max(errs, key=errs.get), "worst_grad_err_of_max": max(errs.values()),
+        "flash_launches": f32_launches}
+    del blocks32, x, got, want, g_got, g_want, leaves
+    mark("pipeline_f32", t0)
+
+    # (c) apply_mlp_ep, float32
+    t0 = time.perf_counter()
+    mlp = {k: t.float() for k, t in blocks[0]["mlp"].items()}
+    x = torch.randn((1, MESH_MLP_TOKENS, cfg.d_model), generator=gen, device=dev)
+    tp = make_mesh((1, MESH_MLP_TP), ("data", "model"), [dev] * MESH_MLP_TP)
+    got, ep_ms = _timed(torch, lambda: moe.apply_mlp_ep(mlp, x, cfg, tp))
+    want, plain_ms = _timed(torch, lambda: swiglu_apply(mlp, x))
+    line["mlp_ep"] = {"tp": MESH_MLP_TP, "d_ff": cfg.d_ff, "d_ff_per_shard": cfg.d_ff // MESH_MLP_TP,
+                      "tokens": MESH_MLP_TOKENS,
+                      "err_of_max": float((got - want).abs().max() / want.abs().max()),
+                      "ms": ep_ms, "swiglu_apply_ms": plain_ms}
+    del mlp, x, got, want
+    torch.cuda.empty_cache()
+    mark("mlp_ep", t0)
+
+    # (d) reshard and rescale_checkpoint: the reduced config's parameters
+    t0 = time.perf_counter()
+    small = M.init_params(configs.reduced(configs.get(TRAIN_ARCH)), LM_SEED, dev)
+    meshes = [make_mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+              for shape in (MESH_RESHARD_FROM, MESH_RESHARD_TO)]
+    with tempfile.TemporaryDirectory(prefix="repro-torch-elastic-") as d:
+        ckpt.save_checkpoint(d, elastic.reshard(small, meshes[0]), 1)
+        placed = elastic.rescale_checkpoint(d, 1, small, meshes[1])
+    back = named_leaves(elastic.gather(placed))
+    placed = named_leaves(placed)
+    want = named_leaves(small)
+    shards = [(t, s.sharding.shard_shape(s.shape)) for s in placed.values()
+              for t in s.shards.values()]
+    line["reshard"] = {
+        "from": list(MESH_RESHARD_FROM), "to": list(MESH_RESHARD_TO), "leaves": len(want),
+        "shards": len(shards),
+        "leaves_equal": sum(back[n].dtype == w.dtype and bool(torch.equal(back[n], w))
+                            for n, w in want.items()),
+        "shard_shapes_ok": all(tuple(t.shape) == sh for t, sh in shards),
+        "shards_on_card": all(t.device.type == "cuda" for t, _ in shards),
+        "specs": {n: list(s.sharding.spec) for n, s in list(placed.items())[:4]}}
+    del small, placed, back, shards
+    mark("reshard", t0)
+    line["launches"] = {k: n - before[k] for k, n in counts().items()}
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+
+    a, b, c, r = line["bf16"], line["float32"], line["mlp_ep"], line["reshard"]
+    L, n_micro = cfg.n_layers, MESH_PIPE_MICRO
+    check(a["forward_equal_microbatched"] and a["grad_run_forward_equal"],
+          f"train mesh: the bf16 pipeline is not stack_forward over its microbatches: {a}")
+    check(a["worst_grad_bf16_ulps_of_max"] <= MESH_PIPE_BF16_ULPS,
+          f"train mesh: bf16 pipeline gradient {a['worst_leaf']} {a['worst_grad_bf16_ulps_of_max']}")
+    check(a["qkv_grads"] == 3 * L and 0 < a["qkv_grad_min_of_max_abs"] < float("inf"),
+          f"train mesh: wq, wk or wv got no gradient: {a}")
+    check(a["flash_launches"] == {"forward": L * n_micro, "backward_calls": L * n_micro,
+                                  "backward_kernels": L * n_micro * len(fa.BWD_KERNELS["bf16"])},
+          f"train mesh: the bf16 pipeline launched {a['flash_launches']}")
+    check(a["peak_memory_gb"] < TRAIN_PEAK_BYTES / 1e9, f"train mesh: peak {a['peak_memory_gb']} GB")
+    check(b["out_err_of_max"] <= MESH_F32_RTOL_OF_MAX
+          and b["worst_grad_err_of_max"] <= TRAIN_GRAD_RTOL_OF_MAX,
+          f"train mesh: float32 pipeline vs stack_forward {b}")
+    check(b["flash_launches"] == {"forward": MESH_PIPE_F32_LAYERS * MESH_PIPE_F32_MICRO,
+                                  "backward_calls": MESH_PIPE_F32_LAYERS * MESH_PIPE_F32_MICRO},
+          f"train mesh: float32 flash launches {b['flash_launches']}")
+    check(c["err_of_max"] <= MESH_F32_RTOL_OF_MAX, f"train mesh: apply_mlp_ep vs swiglu_apply {c}")
+    check(r["leaves_equal"] == r["leaves"] and r["shard_shapes_ok"] and r["shards_on_card"],
+          f"train mesh: reshard / rescale_checkpoint {r}")
     return line
 
 
@@ -4465,6 +4769,10 @@ def smoke(torch) -> dict:
                 "library_ms", "kernel_without_softcap_ms")}
                 for label, r in bwd_path.items()
                 if label.startswith("gemma2") and r["dtype"] == dtype}})
+    # the train path's launches that phase train's part "mesh" made (the
+    # pipelines), within launches_by_path["train"]
+    for ent in kernels[3:]:
+        ent["train_mesh_launches"] = train_full_line["mesh"]["launches"][ent["name"]]
     kernels[5]["train_step"] = {k: train_full_line[k] for k in (
         "ms_per_step", "tokens_per_s", "peak_memory_gb")}
     kernels[5]["train_step"]["flash_bwd_share_of_step"] = \

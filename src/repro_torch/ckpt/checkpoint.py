@@ -189,7 +189,7 @@ def verify_checkpoint(path: str, step: int) -> bool:
 
 def _torch_dtype(leaf: Any) -> Optional[torch.dtype]:
     """The dtype a restored leaf takes from its ``like`` leaf, if any."""
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(getattr(leaf, "dtype", None), torch.dtype):  # tensors, sharded ones
         return leaf.dtype
     if isinstance(leaf, np.ndarray):
         return torch.from_numpy(np.empty(0, leaf.dtype)).dtype

@@ -47,7 +47,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> di
     ``D`` and ``dt_bias`` are float32 whatever the parameter dtype, as in
     the reference.
     """
-    tf.check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "meta":
         gen = _ShapeOnly()

@@ -20,9 +20,21 @@ bf16 that moves the output by an ulp from run to run.
 ``_local_dispatch_combine`` is the expert-parallel path's local step
 (experts [e0, e0 + E_loc) of E), with int-only index plumbing and k
 bounded gathers; with e0 = 0 and E_loc = E it is a second implementation
-of ``apply_moe`` without the shared expert. ``apply_moe_ep`` and
-``apply_mlp_ep`` (shard_map over a mesh) wait for ROADMAP Queue 1, item
-15h: ``apply_moe_auto`` takes the single-device branch.
+of ``apply_moe`` without the shared expert.
+
+``apply_moe_ep`` and ``apply_mlp_ep`` are the reference's shard_map
+layers over a ``train.meshctx.Mesh``, run as a loop over its positions in
+one process (as ``core.distributed`` runs §3.2): data shards split the
+batch over the DP axes, model shards hold E / tp experts (or d_ff / tp of
+the MLP). A shard's all_gather of the sequence across 'model' is a
+``torch.cat`` of the sequence blocks on its device; the psum (or
+psum_scatter) of the model shards' partial outputs is their sum in shard
+order, split along the sequence. Capacity is counted per data shard, from
+its own tokens, as in the reference: with more than one data shard at a
+binding capacity factor ``apply_moe_ep`` is not ``apply_moe`` over the
+whole batch, but ``apply_moe`` over each data shard's tokens.
+``apply_moe_auto`` takes the expert-parallel path under a mesh with a
+'model' axis that divides the experts, and ``apply_moe`` otherwise.
 
 ``apply_moe`` and ``_local_dispatch_combine`` can also return the kept
 assignments as a (T, E) bool tensor, each computed by its own index
@@ -33,7 +45,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import he_init
+from repro_torch.models.layers import he_init, swiglu_apply
+from repro_torch.train.meshctx import Mesh, constrain, current_mesh, dp_positions
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_expert: int, n_experts: int,
@@ -110,9 +123,11 @@ def apply_moe(p: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.2
     xbuf = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
     xbuf.index_put_((slot_e, slot_c), torch.where(keep[:, None], x[st], 0.0).to(x.dtype),
                     accumulate=True)
+    # the reference's EP placement hints: experts over 'model', capacity over 'data'
+    xbuf = constrain(xbuf, "model", "data", None)
 
     # ---- expert computation and combine --------------------------------
-    ybuf = _experts(p, xbuf)
+    ybuf = constrain(_experts(p, xbuf), "model", "data", None)
     vals = ybuf[slot_e, slot_c] * (sw * keep)[:, None].to(x.dtype)
     # a token's k entries, in the expert order the sort left them in
     v = vals[torch.argsort(st, stable=True)].reshape(T, top_k, d)
@@ -180,8 +195,129 @@ def _local_dispatch_combine(p_local: dict, x_flat: torch.Tensor, top_k: int, cf:
     return out, kept
 
 
+def _ep_layout(mesh: Mesh, x: torch.Tensor):
+    """The data shards' batch rows and whether the sequence splits over
+    'model' (the reference's x spec P(dp, 'model' or None, None))."""
+    if "model" not in mesh.shape:
+        raise ValueError(f"the mesh {mesh.axis_names} has no 'model' axis")
+    tp = mesh.shape["model"]
+    B, S, _ = x.shape
+    dps = dp_positions(mesh)
+    if B % len(dps):
+        raise ValueError(f"batch {B} does not divide over {len(dps)} data shards")
+    Bl = B // len(dps)
+    rows = [slice(i * Bl, (i + 1) * Bl) for i in range(len(dps))]
+    return dps, rows, tp, S % tp == 0 and S >= tp
+
+
+def _seq_blocks(t: torch.Tensor, tp: int) -> list[torch.Tensor]:
+    return list(t.split(t.shape[1] // tp, dim=1))
+
+
+def _shard_sum(parts: list[torch.Tensor], dev) -> torch.Tensor:
+    """The psum: the model shards' partials added on ``dev`` in shard order."""
+    total = parts[0].to(dev)
+    for part in parts[1:]:
+        total = total + part.to(dev)
+    return total
+
+
+def _combine(parts: list[torch.Tensor], mesh: Mesh, at: dict, seq_split: bool):
+    """The model shards' partial outputs (Bl, S, d) of one data shard
+    summed: split along the sequence, shard j's block summed on its device
+    (psum_scatter); unsplit, summed once (psum, every shard the same).
+    Returns [(model shard j, its output)]."""
+    if not seq_split:
+        return [(0, _shard_sum(parts, mesh.device(**at, model=0)))]
+    tp = len(parts)
+    blocks = [_seq_blocks(pt, tp) for pt in parts]
+    return [(j, _shard_sum([b[j] for b in blocks], mesh.device(**at, model=j)))
+            for j in range(tp)]
+
+
+def apply_moe_ep(p: dict, x: torch.Tensor, cfg, mesh: Mesh, return_kept: bool = False):
+    """Expert-parallel MoE over ``mesh`` (the reference's shard_map). x:
+    (B, S, d) -> (B, S, d), on x's device.
+
+    Each data shard's tokens are gathered across 'model'; model shard j
+    runs ``_local_dispatch_combine`` over experts [j E / tp, (j + 1) E /
+    tp) on its device, with the capacity of the data shard's token count;
+    the partials are summed in shard order and split back along the
+    sequence. When S % tp != 0 or S < tp the sequence is not split (the
+    reference's psum fallback). The shared expert runs on each shard's own
+    tokens. With ``return_kept`` also the kept assignments (B S, E) bool,
+    the union of the model shards'. Raises ``ValueError`` when the experts
+    do not divide over 'model' or the batch over the data shards."""
+    E = cfg.n_experts
+    dps, rows, tp, seq_split = _ep_layout(mesh, x)
+    if E % tp:
+        raise ValueError(f"{E} experts do not divide over a 'model' axis of {tp}")
+    E_loc = E // tp
+    B, S, d = x.shape
+    outs, kepts = [], []
+    for at, r in zip(dps, rows):
+        xr = x[r]
+        # the shard (at, j) holds x[r], its sequence block j when split
+        local = _seq_blocks(xr, tp) if seq_split else [xr] * tp
+        parts, kept = [], None
+        for j in range(tp):
+            dev = mesh.device(**at, model=j)
+            xg = torch.cat([blk.to(dev) for blk in local], dim=1) if seq_split else local[j].to(dev)
+            e0 = j * E_loc
+            p_loc = {"router": p["router"].to(dev),
+                     **{k: p[k][e0:e0 + E_loc].to(dev) for k in ("gate", "up", "down")}}
+            res = _local_dispatch_combine(p_loc, xg.reshape(-1, d), cfg.top_k,
+                                          cfg.capacity_factor, e0, E, E_loc, return_kept)
+            if return_kept:
+                res, k_j = res
+                kept = k_j.to(x.device) if kept is None else kept | k_j.to(x.device)
+            parts.append(res.reshape(xg.shape))
+        blocks = []
+        for j, out_j in _combine(parts, mesh, at, seq_split):
+            if "shared" in p:
+                s = {k: t.to(out_j.device) for k, t in p["shared"].items()}
+                out_j = out_j + _shared(s, local[j].to(out_j.device))
+            blocks.append(out_j.to(x.device))
+        outs.append(torch.cat(blocks, dim=1))
+        kepts.append(kept)
+    out = torch.cat(outs, dim=0)
+    return (out, torch.cat(kepts, dim=0)) if return_kept else out
+
+
+def apply_mlp_ep(p: dict, x: torch.Tensor, cfg, mesh: Mesh) -> torch.Tensor:
+    """Dense SwiGLU with d_ff tensor-parallel over 'model' (the
+    reference's shard_map): each data shard's sequence gathered across
+    'model', shard j's product over its d_ff / tp columns, the partials
+    summed in shard order and split back along the sequence. Where S % tp
+    != 0, S < tp or d_ff % tp != 0 it is ``swiglu_apply``, as in the
+    reference."""
+    dps, rows, tp, seq_split = _ep_layout(mesh, x)
+    d_ff = p["gate"].shape[1]
+    if not seq_split or d_ff % tp:
+        return swiglu_apply(p, x)
+    f = d_ff // tp
+    outs = []
+    for at, r in zip(dps, rows):
+        local = _seq_blocks(x[r], tp)
+        parts = []
+        for j in range(tp):
+            dev = mesh.device(**at, model=j)
+            xg = torch.cat([blk.to(dev) for blk in local], dim=1)
+            cols = slice(j * f, (j + 1) * f)
+            g = F.silu(xg @ p["gate"][:, cols].to(dev))
+            parts.append((g * (xg @ p["up"][:, cols].to(dev))) @ p["down"][cols].to(dev))
+        outs.append(torch.cat([o.to(x.device) for _, o in _combine(parts, mesh, at, True)],
+                              dim=1))
+    return torch.cat(outs, dim=0)
+
+
 def apply_moe_auto(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d) through ``apply_moe`` over the B S tokens
-    (the reference's single-device branch; its mesh branch is item 15h)."""
+    """x: (B, S, d) -> (B, S, d): ``apply_moe_ep`` under an active mesh
+    with a 'model' axis that divides the experts, else ``apply_moe`` over
+    the B S tokens (the reference's two branches)."""
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names \
+            and cfg.n_experts % mesh.shape["model"] == 0:
+        return apply_moe_ep(p, x, cfg, mesh)
     B, S, d = x.shape
     return apply_moe(p, x.reshape(B * S, d), cfg.top_k, cfg.capacity_factor).reshape(B, S, d)

@@ -25,9 +25,13 @@ which a gradient is taken (``torch.utils.checkpoint``): "full" recomputes
 the whole block in the backward pass, "dots" keeps its matrix products'
 outputs. Serving (no gradient) never checkpoints.
 
-The mesh knobs (``attn_head_parallel``, ``pure_dp``, ``mlp_ep``) do
-nothing on one device: ``check_supported`` raises for a config that asks
-for them (ROADMAP Queue 1, item 15h).
+The mesh knobs follow the reference's ``block_forward`` under an active
+``train.meshctx`` mesh: ``attn_head_parallel`` and ``pure_dp`` only hint
+placement through ``meshctx.constrain`` (which moves no value in one
+process), ``mlp_ep`` runs the MLP through ``moe.apply_mlp_ep`` under a
+mesh with a 'model' axis, and MoE layers go through
+``moe.apply_moe_auto``. With no mesh active every knob is the
+single-device path, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,19 +47,12 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_mrope, apply_rope, he_init, rms_norm,
                                        swiglu_apply, swiglu_init)
+from repro_torch.train.meshctx import constrain, current_mesh
 
 # position held by an empty cache slot: above any real one
 EMPTY_KPOS = 2**30
-_MESH_KNOBS = ("attn_head_parallel", "pure_dp", "mlp_ep")
 # the SSM's decode-cache entries; every other entry has the sequence on axis 2
 SSM_CACHE = ("conv", "state")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for a config the port does not run on one device."""
-    knobs = [k for k in _MESH_KNOBS if getattr(cfg, k)]
-    if knobs:
-        raise ValueError(f"{cfg.name}: mesh knobs {knobs} have no meaning on one device")
 
 
 # ------------------------------------------------------------- init --------
@@ -131,7 +128,12 @@ def _qkv(p, cfg: ArchConfig, x, positions):
 def attn_forward(p, cfg: ArchConfig, x, positions, window: int, collect=False):
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.attn_head_parallel:
+        # head-sharded attention in the reference: every product head-local
+        q, k, v = (constrain(t, "data", None, "model", None) for t in (q, k, v))
     o = attn_lib.attention(q, k, v, window=window, attn_softcap=cfg.attn_softcap)
+    if cfg.attn_head_parallel:
+        o = constrain(o, "data", None, "model", None)
     out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
     if not collect:
         return out, None
@@ -147,13 +149,18 @@ def _mix(p, cfg: ArchConfig, ao, so):
     return 0.5 * (rms_norm(ao, p["fuse_a"], cfg.norm_eps) + rms_norm(so, p["fuse_s"], cfg.norm_eps))
 
 
-def _ffn(p, cfg: ArchConfig, x):
-    """The residual MLP or MoE after the mixer, where the layer has one."""
+def _ffn(p, cfg: ArchConfig, x, mlp_ep: bool = False):
+    """The residual MLP or MoE after the mixer, where the layer has one;
+    with ``mlp_ep`` under a mesh with a 'model' axis the MLP is
+    tensor-parallel (``moe.apply_mlp_ep``)."""
     if "ln2" not in p:
         return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.n_experts > 0:
         return x + moe_lib.apply_moe_auto(p["moe"], h, cfg)
+    mesh = current_mesh() if mlp_ep else None
+    if mesh is not None and "model" in mesh.axis_names:
+        return x + moe_lib.apply_mlp_ep(p["mlp"], h, cfg, mesh)
     return x + swiglu_apply(p["mlp"], h)
 
 
@@ -172,9 +179,21 @@ def block_forward(p, cfg: ArchConfig, x, positions, window: int, collect=False):
             cache.update(sc)
     if cfg.family == "hybrid":
         x = x + _mix(p, cfg, ao, so)
+    elif cfg.has_ssm:
+        x = x + so
     else:
-        x = x + (so if cfg.has_ssm else ao)
-    return _ffn(p, cfg, x), cache
+        x = x + ao
+        if cfg.attn_head_parallel:
+            # the reference re-shards the residual to the SP carry layout here
+            x = constrain(x, "data", "model", None)
+    x = _ffn(p, cfg, x, cfg.mlp_ep)
+    # the residual carry's layout: the sequence over 'model' (SP), or the
+    # batch over every axis in pure-DP plans
+    if cfg.pure_dp:
+        x = constrain(x, "batch", None, None)
+    else:
+        x = constrain(x, "data", "model", None)
+    return x, cache
 
 
 # the products whose outputs the "dots" remat policy saves
@@ -253,7 +272,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, device) -> di
     ``cfg.kv_cache_quant`` K and V are int8 with float32 per-(token, head)
     scales: (hd + 4) / (2 hd) of bf16's bytes. SSM: "conv" and "state" in
     ``dtype``, zeros."""
-    check_supported(cfg)
     cache = {}
     if cfg.has_attn:
         shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.hd)

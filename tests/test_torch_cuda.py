@@ -908,3 +908,69 @@ def test_reduced_train_step_on_the_card_matches_cpu(dev):
     assert abs(float(got_loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_pipeline_on_the_card_matches_cpu(dev):
+    """The GPipe pipeline of reduced(stablelm-3b) at 8 layers on 4 stages
+    of the card (float32, head dim 16): the output bit for bit the card's
+    ``stack_forward`` over the same two microbatches and within 1e-4 of
+    the CPU's pipeline, every gradient leaf within 1e-4 of its largest
+    magnitude of the CPU's; one forward and one backward flash call per
+    layer and microbatch."""
+    from repro_torch.models import pipeline as tpp
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.meshctx import make_mesh
+
+    cfg = tconfigs.reduced(tconfigs.get("stablelm-3b"), n_layers=8)
+    params = TM.init_params(cfg, 0, "cpu")
+    x = torch.from_numpy(_rng(41).standard_normal((4, 32, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(32).expand(4, 32)
+
+    def run(blocks, xx, p, devs):
+        for t in tree_leaves(blocks):
+            t.requires_grad_()
+        out = tpp.pipeline_forward(blocks, cfg, xx, p, make_mesh((4,), ("model",), devs), 2)
+        (out ** 2).sum().backward()
+        return out.detach(), [t.grad for t in tree_leaves(blocks)]
+
+    blocks = _to(params["blocks"], dev)
+    want, want_g = run(params["blocks"], x, pos, ["cpu"] * 4)
+    fwd0, bwd0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    got, got_g = run(blocks, x.to(dev), pos.to(dev), [dev] * 4)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - fwd0 == 16
+    assert tfa.flash_attention_bwd.launches - bwd0 == 16
+    with torch.no_grad():
+        micro = torch.cat([ttf.stack_forward(blocks, cfg, xm, pos[:2].to(dev))
+                           for xm in x.to(dev).split(2)])
+    assert torch.equal(got, micro)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    for g, w in zip(got_g, want_g):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_ep_on_the_card_matches_cpu(dev, cf):
+    """``apply_moe_ep`` on a (data 2, model 4) mesh of the card against the
+    same on ``["cpu"] * 8``: the kept (token, expert) pairs equal, the
+    output within 1e-5 of its largest magnitude; ``apply_mlp_ep`` likewise."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.layers import swiglu_init
+    from repro_torch.train.meshctx import make_mesh
+
+    cfg = tconfigs.ArchConfig(name="t", family="moe", n_layers=1, d_model=32, n_heads=4,
+                              n_kv=2, d_ff=0, vocab=64, n_experts=8, top_k=2, d_expert=16,
+                              n_shared_experts=1, capacity_factor=cf, param_dtype="float32",
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = tmoe.init_moe(gen, 32, 16, 8, 1, torch.float32)
+    x = torch.from_numpy(_rng(42).standard_normal((4, 64, 32)).astype(np.float32))
+    cpu, card = (make_mesh((2, 4), ("data", "model"), [d] * 8) for d in ("cpu", dev))
+    want, want_kept = tmoe.apply_moe_ep(p, x, cfg, cpu, return_kept=True)
+    got, got_kept = tmoe.apply_moe_ep(_to(p, dev), x.to(dev), cfg, card, return_kept=True)
+    assert torch.equal(got_kept.cpu(), want_kept)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    mlp = swiglu_init(gen, 32, 64, torch.float32)
+    want = tmoe.apply_mlp_ep(mlp, x, None, cpu)
+    got = tmoe.apply_mlp_ep(_to(mlp, dev), x.to(dev), None, card)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())

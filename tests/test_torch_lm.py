@@ -244,7 +244,14 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
 
 
 def test_unported_options_raise():
+    """No option is left unported: the mesh knobs, refused until the
+    multi-device modules came, now run, and with no mesh active each is
+    the single-device path bit for bit, as in the reference
+    (``tests/test_torch_pipeline.py`` holds them under a mesh)."""
     base = tconfigs.reduced(tconfigs.get("stablelm-3b"))
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, base.vocab, (2, 16)))
+    want = TM.forward(TM.init_params(base, 0, "cpu"), base, {"tokens": tokens})
     for knob in ("attn_head_parallel", "pure_dp", "mlp_ep"):
-        with pytest.raises(ValueError, match="mesh"):
-            TM.init_params(tconfigs.reduced(base, **{knob: True}), 0, "cpu")
+        cfg = tconfigs.reduced(base, **{knob: True})
+        got = TM.forward(TM.init_params(cfg, 0, "cpu"), cfg, {"tokens": tokens})
+        assert torch.equal(got, want), knob

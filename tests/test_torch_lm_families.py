@@ -261,11 +261,10 @@ def test_engine_resets_a_reused_slot(arch):
                                   "qwen2-vl-7b", "musicgen-medium", "gemma2-27b", "stablelm-3b",
                                   "qwen2-72b", "starcoder2-15b"])
 def test_every_family_initialises(arch):
-    """``check_supported`` accepts every family; ``init_params`` runs for
-    each reduced config and gives the reference's parameter tree."""
+    """``init_params`` runs for each family's reduced config and gives the
+    reference's parameter tree."""
     tcfg = tconfigs.reduced(tconfigs.get(arch))
     jcfg = jconfigs.reduced(jconfigs.get(arch))
-    ttf.check_supported(tcfg)
     mine = TM.init_params(tcfg, 0, "cpu")
     shapes = jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.PRNGKey(0)))
 
