@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each printing one JSON line:
 
-  build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh;
+  build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh,
+           one nvcc a source (compat.CompilationCounter: 4; no later phase
+           may compile, which the script checks at its end);
            ptxas's report of every kernel (the float32 flash kernel's by
            head dim: no spill at hd 128; every flash backward kernel's:
            none may spill or touch local memory, and each bf16 dK/dV and
@@ -35,8 +37,9 @@ Phases, each printing one JSON line:
            bit.
   fig2     simulator.run_all at the paper's Fig. 2 config (Tab. 2), every
            average reward against the JAX reference's, the fused trajectory
-           against the spec-level reference backend, and a profile of the
-           OGASCHED slot.
+           against the spec-level reference backend, 100 OGASCHED slots
+           under compat.sync_guard("error") (a host sync raises), and a
+           profile of the OGASCHED slot.
   regret   run_all with the Thm. 1 regret certificate at Fig. 2.
   fig5     run_all at the paper's Fig. 5 large-scale config (T = 300).
   grid     sweep.make_grid -> build_batch -> run_grid -> summarize over 64
@@ -78,10 +81,14 @@ Phases, each printing one JSON line:
            projection at (768, 10) a OGASCHED slot), the duration-1
            reduction to slot mode, and a profile of 100 OGASCHED slots.
   faults   benchmarks/bench_faults.py's quick configuration (L 10, R 64,
-           work_mean 600; T cut to 500) under its four fault regimes: OGASCHED,
-           the heuristics and heSRPT, goodput, wasted work, evictions,
-           fault drops and recovery_time against FAULTS_REFERENCE, and the
-           surviving capacity every slot.
+           work_mean 600; T cut to 500) under its four fault regimes, one
+           worker process of this script a regime (--faults-worker), the
+           four at once: OGASCHED, the heuristics and heSRPT, goodput,
+           wasted work, evictions, fault drops and recovery_time against
+           FAULTS_REFERENCE, and the surviving capacity every slot. The
+           workers run beside the lifecycle phase's six runs and are
+           collected before its duration-1 check and slot profile; their
+           slot times are taken beside each other and those runs.
   grid_lifecycle  sweep.run_grid(mode="lifecycle") over 8 of the grid's 64
            Fig. 2 configs at T 200, faults off and on, each row against
            simulator.run_all(mode="lifecycle") of its config.
@@ -113,7 +120,9 @@ Phases, each printing one JSON line:
            slot, kept-port masks and Σ q_t against the reference's pins),
            §3.2's sharded step at launch/dryrun.py's scheduler cell (L 100,
            R 131072, K 6) on 1 and 4 shards of the card against the
-           unsharded fused step (ms a step, peak memory), and the job
+           unsharded fused step (ms a step, peak memory; the dry run's
+           sched cell at 4 shards: one position's argument bytes equal to
+           the shard's tensors), and the job
            manager on examples/elastic_cluster.py's scenario (grants and
            meshes equal to the reference's, EXTENSIONS_REFERENCE from
            tests/_extensions_pins.py); the fused kernel's launches by shape.
@@ -123,7 +132,10 @@ Phases, each printing one JSON line:
            weights: prefill of one 8192-token prompt (timed, peak memory)
            and the same decode-after-prefill check, with the bf16 KV cache
            and with the int8 one (kv_cache_quant=True; its bytes against
-           the int8 + scale arithmetic).
+           the int8 + scale arithmetic); launch/dryrun.py's prediction of
+           that prefill on meta tensors: its parameter bytes equal to the
+           held ones, its peak over the measured one within
+           DRYRUN_PEAK_RATIO_BARS.
   lm_serve the continuous-batching Engine on those weights: 8 greedy
            requests over 4 slots, each first token against prefill's; the
            same requests on the int8 KV cache (tokens recorded beside the
@@ -167,7 +179,10 @@ Phases, each printing one JSON line:
            launch/train.py's build and the Trainer (4 x 4096 tokens, 1 +
            3 steps: ms a step, tokens/s, peak memory, 2 x 32 forward and
            32 backward calls (3 kernels each) a step, one step under the profiler for
-           the backward kernels' share), and on the parameters it trained
+           the backward kernels' share; the dry run's prediction of that
+           step, its parameter and optimizer bytes equal to the Trainer's,
+           its peak over the measured one within DRYRUN_PEAK_RATIO_BARS),
+           and on the parameters it trained
            (part "mesh"): models.pipeline at 32 layers on 4 stages of the
            card in bf16 (bit for bit stack_forward over its microbatches,
            gradients within 2 bf16 ulps, the flash launches counted) and
@@ -182,6 +197,9 @@ Phases, each printing one JSON line:
 The kernels phase also holds both sortscan kernels and both bisect kernels
 at the wide rows (L 257 to 4096, one block a row), with rows of zero
 capacity and of z = 0 that must come back exactly 0.
+
+added_parts  the seconds of the dry-run predictions against
+           ADDED_PARTS_BUDGET_S, and the compiles after build (0).
 
 fig2 to grid run on the warmed cache and must make no measurement and
 miss it never. The kernel launch counters are set to 0 before the autotune
@@ -222,13 +240,6 @@ import zlib
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
-# float64 and float32 rates outside the tensor cores (the sortscan water
-# level is solved in double, the bisection in float32).
-HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 34e12
-FP32_OPS_PER_S = 67e12
 
 # Average rewards of the JAX reference package on the CPU (jax 0.9.0),
 # re-derived with
@@ -304,9 +315,6 @@ MAIN_LAUNCHES_BY_SHAPE = {
     "proj_sortscan": {"768x10": 2000},
 }
 
-# bf16 dense tensor-core peak of the H100 SXM (NVIDIA data sheet): the
-# flash-attention bound counts its work at the rate the function needs
-BF16_OPS_PER_S = 989e12
 # Special-function results per clock per SM on Hopper (ex2, rcp): the bf16
 # flash kernel's softmax floor on those units. It issues one ex2 per
 # unmasked (query, key) pair. Its softcap is tanhf, accurate to float32,
@@ -546,10 +554,9 @@ BWD_BF16_EMU_ULPS = 2
 BWD_TIMING_REPS = 5
 # the plain gradient takes 120-200 ms a call at the path shapes
 BWD_PLAIN_TIMING_REPS = 2
-# the five products of the gradient (QK^T, dO V^T, P^T dO, dS^T Q, dS K),
-# each 2 hd FLOPs a head a visible pair; the kernels run seven (QK^T and
-# dO V^T once for dK/dV and once for dQ: no atomics)
-BWD_PRODUCTS = 5
+# the gradient's products the kernels run: seven, the function's five
+# (roofline.BWD_PRODUCTS) with QK^T and dO V^T once for dK/dV and once for
+# dQ (no atomics)
 KERNEL_BWD_PRODUCTS = 7
 # The slice: stablelm-3b at full width. First 2 of its 32 layers, float32
 # params and compute, on one row of 4096 tokens of batch_at(step 0): loss
@@ -573,6 +580,24 @@ TRAIN_TIMED_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL_OF_MAX = 1e-4
 TRAIN_PEAK_BYTES = 80e9
+# launch/dryrun.py on meta tensors, on a 1-position mesh, against the card:
+# the Trainer's configuration (phase train) and gemma2-27b's 8192-token
+# prefill (phase lm_prefill). The argument bytes of the parameters (and
+# the optimizer state) equal the bytes held on the card exactly; the
+# predicted peak (arguments + temporaries) over the measured peak lies
+# within the bar. The meta run frees what the card's eager run frees, at
+# the same points, so the ratio stays at or below 1 (0.01 of slack); the
+# card adds what meta tensors cannot show (library workspaces, the
+# allocator's rounding, the init's float32 draws, the int64 batch):
+# 1.13 and 0.99 GB, ratios 0.974 and 0.984, in the first reading
+# (PERF.md section 2), and the bar leaves twice that gap. §3.2's cell at
+# the extensions phase's 4 shards: per-position argument bytes equal the
+# shard's tensors.
+DRYRUN_PEAK_RATIO_BARS = {"train": (0.95, 1.01), "lm_prefill": (0.95, 1.01)}
+# the seconds the dry-run predictions and the compile counter may add
+ADDED_PARTS_BUDGET_S = 10.0
+# the seconds each of those parts took, filled in as they run
+ADDED_SECONDS: dict = {}
 # every family's reduced config (float32, head dim 16), one train step on
 # the card against the CPU (the bars above); the Trainer's restart on the
 # card (reduced stablelm-3b, 8 steps, checkpoints every 4, a failure
@@ -641,6 +666,8 @@ LIFECYCLE_CFG = dict(T=1000, L=10, R=128, K=6, seed=0, work_mean=1200.0)
 LIFECYCLE_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "multiclass")
 FAULTS_CFG = dict(T=500, L=10, R=64, K=6, seed=0, work_mean=600.0)
 FAULTS_ALGORITHMS = ("ogasched", "drf", "fairness", "binpacking", "spreading", "hesrpt")
+# seconds a faults worker (one regime, six runs) may take
+FAULTS_WORKER_TIMEOUT_S = 600
 FAULT_REGIMES = {
     "none": {},
     "failures": dict(fail_rate=0.02, fail_frac=0.3, repair_mean=40.0),
@@ -994,24 +1021,6 @@ def device_ms(fn, reps: int) -> float:
     return autotune.device_time_ms(fn, reps)
 
 
-def flash_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal row set of S rows attends to: with a
-    window, row q sees min(q + 1, window) keys."""
-    if window <= 0:
-        return S * (S + 1) // 2
-    return sum(min(q + 1, window) for q in range(S))
-
-
-def flash_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s=BF16_OPS_PER_S):
-    """The least time the H100 could take for the attention itself: 4 hd
-    FLOPs per head per unmasked pair at ``ops_per_s`` (the bf16 tensor-core
-    rate, or the float32 rate for float32 inputs), or one read of q, k, v
-    and one write of o at the HBM rate; the larger."""
-    t_ops = 4 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
-    t_bytes = elem_bytes * B * S * hd * (2 * H + 2 * G) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def sm_max_clock_hz() -> float:
     """The SM clock's maximum, as nvidia-smi reads it (clocks.max.sm)."""
     import subprocess
@@ -1303,6 +1312,7 @@ def sdpa_yardstick(torch, q, k, v, window: int, kernel, atol: float) -> dict:
 def flash_phase(torch, dev) -> dict:
     """Both flash kernels against their plain version on the card; times at
     gemma2-27b's prefill shape. Launches made here are not a path's."""
+    from repro_torch.analysis import roofline as rl
     from repro_torch.kernels import _launch, build, ops, ref
     from repro_torch.kernels import flash_attention as fa
 
@@ -1353,7 +1363,7 @@ def flash_phase(torch, dev) -> dict:
                **lse_checks(torch, f"flash path shape bf16 {label}", got, run, want_lse)}
         del want_abs, got, want_lse
         check(row["max_err_over_bar"] <= 1.0, f"flash path shape bf16 {label}: {row}")
-        t_b, by = flash_bound(B, S, H, G, hd, window, 2)
+        t_b, by = rl.flash_bound(B, S, H, G, hd, window, 2)
         tanh_exp_pairs = flash_tanh_exp_pairs(torch, q, k, window, 50.0)
         path[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "dtype": "bfloat16", "window": window,
                        "softcap": 50.0, **row,
@@ -1362,16 +1372,16 @@ def flash_phase(torch, dev) -> dict:
                        "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
                        "bound_ms": t_b, "bound_by": by,
                        "sfu_floor_ms": flash_sfu_floor_ms(
-                           B * H * flash_pairs(S, window) + 2 * tanh_exp_pairs, sms, clock_hz),
+                           B * H * rl.flash_pairs(S, window) + 2 * tanh_exp_pairs, sms, clock_hz),
                        "tanh_exp_pairs": tanh_exp_pairs,
-                       "pairs": flash_pairs(S, window)}
+                       "pairs": rl.flash_pairs(S, window)}
     # the library yardstick: one torch call of the same function without the
     # softcap (no single call softcaps), beside the kernel on those inputs
     library = {label: sdpa_yardstick(torch, q, k, v, window,
                                      lambda: ops.flash_attention(q, k, v, window=window),
                                      FLASH_BF16_ATOL)
                for label, window in (("global", 0), ("window4096", 4096))}
-    library["global"]["kernel_sfu_floor_ms"] = flash_sfu_floor_ms(B * H * flash_pairs(S, 0), sms,
+    library["global"]["kernel_sfu_floor_ms"] = flash_sfu_floor_ms(B * H * rl.flash_pairs(S, 0), sms,
                                                                   clock_hz)
     library["softcapped"] = "no single PyTorch call computes the softcapped function"
     del q, k, v
@@ -1394,7 +1404,7 @@ def flash_phase(torch, dev) -> dict:
         check(err <= FLASH_F32_ATOL, f"flash path shape float32 {label}: max abs err {err}")
         lse_row = lse_checks(torch, f"flash path shape float32 {label}", got, run, want_lse)
         del got, want, want_lse
-        t_b, by = flash_bound(B, S, H, G, hd, window, 4, FP32_OPS_PER_S)
+        t_b, by = rl.flash_bound(B, S, H, G, hd, window, 4, rl.FP32_FLOPS)
         path_f32[label] = {"B_S_H_G_hd": (B, S, H, G, hd), "window": window, "softcap": 50.0,
                            "max_abs_err": err, **lse_row, "ms": device_ms(run, FLASH_TIMING_REPS),
                            "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
@@ -1419,12 +1429,12 @@ def flash_phase(torch, dev) -> dict:
         row = flash_bf16_errors(run(), plain(), want_abs)
         del want_abs
         check(row["max_err_over_bar"] <= 1.0, f"flash {arch} shape bf16: {row}")
-        t_b, by = flash_bound(*shape, window, 2)
+        t_b, by = rl.flash_bound(*shape, window, 2)
         sdpa = sdpa_yardstick(torch, q, k, v, window, run, FLASH_BF16_ATOL)
         families[arch] = {"B_S_H_G_hd": shape, "window": window, "softcap": None, **row,
                           "ms": device_ms(run, FLASH_TIMING_REPS),
                           "plain_ms": device_ms(plain, FLASH_TIMING_REPS),
-                          "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(shape[1], window),
+                          "bound_ms": t_b, "bound_by": by, "pairs": rl.flash_pairs(shape[1], window),
                           "library_ms": sdpa["library_ms"], "library_call": sdpa["call"],
                           "kernel_vs_library_max_abs": sdpa["kernel_vs_library_max_abs"]}
         del q, k, v
@@ -1652,6 +1662,7 @@ def lm_prefill_phase(torch, dev):
     import dataclasses
 
     from repro_torch.configs import base as configs
+    from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import attention as attn_lib
@@ -1699,7 +1710,10 @@ def lm_prefill_phase(torch, dev):
     check(tuple(logits.shape) == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
           "lm_prefill: last-token logits not finite or of the wrong shape")
     check(float(logits.abs().max()) <= cfg.final_softcap, "lm_prefill: logits above the softcap")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak = torch.cuda.max_memory_allocated()
+    peak_gb = peak / 1e9
+    pred = dryrun_prediction("lm_prefill", cfg, ShapeConfig("prompt", LM_SEQ, 1, "prefill"),
+                             sum(t.nbytes for t in _leaves(params)), peak)
     profile = device_profile(torch, lambda: M.prefill(params, cfg, {"tokens": prompt}))
     full, step = decode_after_prefill(torch, M, tf, params, cfg, prompt)
     bf16 = compare_logits(torch, full, step)
@@ -1729,8 +1743,9 @@ def lm_prefill_phase(torch, dev):
             "f32_2_layers_decode_vs_prefill": f32,
             "bars": {"bf16_max_abs_dlogit": LM_BF16_DECODE_ATOL,
                      "f32_max_abs_dlogit": LM_F32_DECODE_ATOL},
-            "bf16_reduced_precision_reduction": False}
+            "bf16_reduced_precision_reduction": False, "dryrun": pred}
     emit(line)
+    hold_prediction("lm_prefill", pred)
     check(bf16["finite"], "lm_prefill bf16: logits not finite")
     check(bf16["argmax_prefill"] == bf16["argmax_decode"],
           f"lm_prefill bf16: decode argmax {bf16['argmax_decode']} != prefill "
@@ -2295,17 +2310,6 @@ def lm_families_phase(torch, dev) -> dict:
             "bf16_flash_launches": {a: ln["bf16_flash_launches"] for a, ln in lines.items()}}
 
 
-def flash_bwd_bound(B, S, H, G, hd, window, elem_bytes, ops_per_s, products=BWD_PRODUCTS):
-    """The least time the H100 could take for attention's gradient: the
-    BWD_PRODUCTS products, 2 hd FLOPs a head a visible pair each, at
-    ``ops_per_s``, or one read of q, k, v, o, dO and one write of dq, dk,
-    dv at the HBM rate; the larger. ``products`` KERNEL_BWD_PRODUCTS gives
-    the time of the kernels' own products at that rate instead."""
-    t_ops = products * 2 * hd * H * B * flash_pairs(S, window) / ops_per_s * 1e3
-    t_bytes = elem_bytes * B * S * hd * (4 * H + 4 * G) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def bwd_errors(got, plain, f32, emu=None) -> dict:
     """For dq, dk and dv: the largest magnitude of the float32 plain
     gradient, the kernel's largest distance from the plain version of its
@@ -2386,6 +2390,7 @@ def train_kernel_checks(torch, dev) -> dict:
     the plain one, and at the path shapes the kernel's time, the plain
     version's, the bound and SDPA's backward. Launches made here are not a
     path's."""
+    from repro_torch.analysis import roofline as rl
     from repro_torch.kernels import ops, ref
 
     t_phase = time.perf_counter()
@@ -2433,14 +2438,14 @@ def train_kernel_checks(torch, dev) -> dict:
                 small[name].append(row)
                 del f32
                 continue
-            t_b, by = flash_bwd_bound(B, S, H, G, hd, window, q.element_size(),
-                                      BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+            t_b, by = rl.flash_bwd_bound(B, S, H, G, hd, window, q.element_size(),
+                                         rl.PEAK_FLOPS if bf16 else rl.FP32_FLOPS)
             row.update({"dtype": name, "ms": device_ms(run, BWD_TIMING_REPS),
                         "plain_ms": device_ms(plain, BWD_PLAIN_TIMING_REPS),
-                        "bound_ms": t_b, "bound_by": by, "pairs": flash_pairs(S, window)})
+                        "bound_ms": t_b, "bound_by": by, "pairs": rl.flash_pairs(S, window)})
             if not bf16:  # the seven products at the float32 FMA rate
-                row["ffma7_ms"] = flash_bwd_bound(B, S, H, G, hd, window, 4, FP32_OPS_PER_S,
-                                                  KERNEL_BWD_PRODUCTS)[0]
+                row["ffma7_ms"] = rl.flash_bwd_bound(B, S, H, G, hd, window, 4, rl.FP32_FLOPS,
+                                                     KERNEL_BWD_PRODUCTS)[0]
             if cap is not None:  # the kernel on the library call's function
                 o_nc, lse_nc = ops.flash_attention(q, k, v, window=window, return_lse=True)
                 row["kernel_without_softcap_ms"] = device_ms(
@@ -2594,12 +2599,49 @@ def train_step_profile(torch, fn) -> dict:
             "top_kernels_ms": [(k[:60], n, t / 1e3) for t, n, k in kernels[:8]]}
 
 
+def dryrun_prediction(label: str, cfg, shape, held_bytes: int, peak_bytes: int) -> dict:
+    """launch/dryrun.py's record of (cfg, shape) on a 1-position mesh
+    against the card: its argument bytes by part beside ``held_bytes``
+    (the parameters, and optimizer state, the card holds), its predicted
+    peak (arguments + temporaries) over the measured ``peak_bytes`` with
+    the bar DRYRUN_PEAK_RATIO_BARS[label]. Allocates nothing on the
+    card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.meshctx import make_mesh
+
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg, shape, mesh=make_mesh((1, 1), ("data", "model"), ["meta"]))
+    seconds = ADDED_SECONDS[label] = time.perf_counter() - t0
+    mem = rec["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    parts = rec["argument_parts"]
+    return {"cell": [cfg.name, shape.kind, shape.global_batch, shape.seq_len],
+            "argument_parts": parts, "held_bytes": held_bytes,
+            "held_equal": parts["params"] + parts.get("opt_state", 0) == held_bytes,
+            "memory": mem, "predicted_peak_gb": predicted / 1e9,
+            "measured_peak_gb": peak_bytes / 1e9, "peak_ratio": predicted / peak_bytes,
+            "bar": DRYRUN_PEAK_RATIO_BARS[label], "flops": rec["cost"]["flops"],
+            "seconds": seconds}
+
+
+def hold_prediction(label: str, pred: dict) -> None:
+    """Raise unless ``dryrun_prediction``'s bytes equal the held ones and
+    its peak ratio lies within its bar."""
+    lo, hi = pred["bar"]
+    check(pred["held_equal"], f"{label} dry run: argument bytes {pred['argument_parts']} vs "
+                              f"{pred['held_bytes']} held on the card")
+    check(lo <= pred["peak_ratio"] <= hi,
+          f"{label} dry run: predicted peak {pred['predicted_peak_gb']} GB over measured "
+          f"{pred['measured_peak_gb']} GB is {pred['peak_ratio']}, outside {pred['bar']}")
+
+
 def train_full(torch, dev) -> dict:
     """Phase train, part 3: stablelm-3b at full width and depth in bf16,
     trained through launch/train.py's ``build`` and the Trainer:
     TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS steps of TRAIN_BATCH x
     TRAIN_SEQ tokens, then one more step under the profiler."""
     from repro_torch.configs import base as configs
+    from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.data.pipeline import batch_at
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as train_cli
@@ -2636,6 +2678,9 @@ def train_full(torch, dev) -> dict:
         written = sorted(os.listdir(ckpt_dir))
         state = out["state"]
         n_params = sum(t.numel() for t in _leaves(state["params"]))
+        held = sum(t.nbytes for t in _leaves([state["params"], state["opt"]]))
+        pred = dryrun_prediction("train", cfg, ShapeConfig("trainer", TRAIN_SEQ, TRAIN_BATCH,
+                                                           "train"), held, peak)
         batch = batch_at(data, steps, trainer.device)
         profile_ = train_step_profile(
             torch, lambda: trainer.step_fn(state["params"], state["opt"], batch))
@@ -2656,7 +2701,7 @@ def train_full(torch, dev) -> dict:
             "ms_per_step": ms, "ms_per_step_timed": timed, "tokens_per_s": tokens / (ms / 1e3),
             "peak_memory_gb": peak / 1e9, "checkpoints_written": written,
             "profile": profile_, "run_s": run_s, "phase_s": time.perf_counter() - t_phase,
-            "mesh_s": mesh_line["phase_s"]}
+            "mesh_s": mesh_line["phase_s"], "dryrun": pred}
     emit(line)
     line["mesh"] = mesh_line
     check(len(rows) == steps and all(np.isfinite(r["loss"]) for r in rows),
@@ -2667,6 +2712,7 @@ def train_full(torch, dev) -> dict:
               and r["bwd_kernel_launches"] == layers * len(fa.BWD_KERNELS["bf16"]),
               f"train full: step {r['step']} launched {r}")
     check(peak < TRAIN_PEAK_BYTES, f"train full: peak memory {peak / 1e9:.1f} GB")
+    hold_prediction("train", pred)
     check(not written, f"train full: checkpoints written: {written}")
     check(n_params == sum(t.numel() for t in _leaves(M.param_shapes(published))),
           f"train full: {n_params} parameters trained")
@@ -3037,9 +3083,12 @@ def expected_launches(name: str, T: int, N: int, L: int) -> dict:
             "proj_sortscan": {shape: proj.get(name, T)}}
 
 
-def lifecycle_phase(torch, dev) -> dict:
+def lifecycle_phase(torch, dev, beside=None) -> dict:
     """benchmarks/bench_lifecycle.py's configuration through lifecycle.run
-    for every algorithm, held to the reference's readings."""
+    for every algorithm, held to the reference's readings. ``beside``, when
+    given, is called after the six runs and before the duration-1 check
+    and the slot profile: the faults phase's workers run beside the six
+    runs, and are collected there, so the profile runs alone."""
     from repro_torch.core import ogasched
     from repro_torch.sched import lifecycle, trace
 
@@ -3070,6 +3119,12 @@ def lifecycle_phase(torch, dev) -> dict:
         bars = DRIFT_BARS if first is not None else {"*": REWARD_RTOL}
         rows[name]["errors"] = hold_metrics(f"lifecycle {name}", got, LIFECYCLE_REFERENCE[name],
                                             bars)
+    runs_s = time.perf_counter() - t_phase
+    beside_s = 0.0
+    if beside is not None:
+        t0 = time.perf_counter()
+        beside()
+        beside_s = time.perf_counter() - t0
     # duration-1 reduction: every job's work 0 gives slot mode's rewards
     y0 = lifecycle.default_y0(spec)
     tr1 = lifecycle.run(spec, arr, torch.zeros_like(works), "ogasched", y0=y0)
@@ -3088,7 +3143,9 @@ def lifecycle_phase(torch, dev) -> dict:
     line = {"phase": "lifecycle", "config": LIFECYCLE_CFG,
             "bars": {"no_drift": REWARD_RTOL, "drift": DRIFT_BARS},
             "duration1_max_abs": d1_err, "duration1_bar": 1e-4 * scale,
-            "ogasched_slot_profile": profile, "phase_s": time.perf_counter() - t_phase,
+            "ogasched_slot_profile": profile, "runs_s": runs_s,
+            "phase_s": time.perf_counter() - t_phase - beside_s,
+            "runs_beside_faults_workers": beside is not None,
             "summary": {n: {k: r[k] for k in ("us_per_slot", "jct_mean", "goodput",
                                               "first_event_diff_slot")}
                         for n, r in rows.items()}}
@@ -3096,52 +3153,156 @@ def lifecycle_phase(torch, dev) -> dict:
     return line
 
 
-def faults_phase(torch, dev) -> dict:
-    """benchmarks/bench_faults.py's quick configuration under its four
-    regimes, held to the reference's readings."""
+def faults_regime(torch, regime: str) -> dict:
+    """One fault regime of benchmarks/bench_faults.py's quick configuration
+    through lifecycle.run for every algorithm of FAULTS_ALGORITHMS, each
+    held to the reference's readings: {"algorithm": row}."""
     from repro_torch.sched import lifecycle, trace
 
-    t_phase = time.perf_counter()
     with open(os.path.join(ROOT, LIFECYCLE_EVENTS)) as f:
-        records = json.load(f)["faults"]["records"]
+        records = json.load(f)["faults"]["records"][regime]
+    cfg = trace.TraceConfig(**FAULTS_CFG, faults=trace.FaultConfig(**FAULT_REGIMES[regime]))
+    spec, arr, works = trace.make_lifecycle(cfg)
+    faults = trace.build_faults(cfg) if cfg.faults.active else None
+    f_np = (np.ones((cfg.T, cfg.K), np.float32) if faults is None
+            else faults.cpu().numpy())
+    N, L = cfg.R * cfg.K, cfg.L
     out = {}
-    for regime, fkw in FAULT_REGIMES.items():
-        cfg = trace.TraceConfig(**FAULTS_CFG, faults=trace.FaultConfig(**fkw))
-        spec, arr, works = trace.make_lifecycle(cfg)
-        faults = trace.build_faults(cfg) if cfg.faults.active else None
-        f_np = (np.ones((cfg.T, cfg.K), np.float32) if faults is None
-                else faults.cpu().numpy())
-        N, L = cfg.R * cfg.K, cfg.L
-        for name in FAULTS_ALGORITHMS:
-            before = launch_snapshot()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr = lifecycle.run(spec, arr, works, name, faults=faults)
-            torch.cuda.synchronize()
-            us = (time.perf_counter() - t0) * 1e6 / cfg.T
-            launched = launch_delta(before, launch_snapshot())
-            s = lifecycle.summarize(tr, spec)
-            got = {k: s[k] for k in ("goodput", "wasted_work", "evictions", "fault_drops",
-                                     "completed")}
-            got["recovery_time"] = lifecycle.recovery_time(tr.rewards.cpu().numpy(), f_np)
-            first = first_event_diff(tr, records[regime][name])
-            row = {"us_per_slot": us, **got, "first_event_diff_slot": first,
-                   "capacity_excess": capacity_excess(tr, spec, faults), "launches": launched}
+    for name in FAULTS_ALGORITHMS:
+        before = launch_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = lifecycle.run(spec, arr, works, name, faults=faults)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = launch_delta(before, launch_snapshot())
+        s = lifecycle.summarize(tr, spec)
+        got = {k: s[k] for k in ("goodput", "wasted_work", "evictions", "fault_drops",
+                                 "completed")}
+        got["recovery_time"] = lifecycle.recovery_time(tr.rewards.cpu().numpy(), f_np)
+        first = first_event_diff(tr, records[name])
+        row = {"us_per_slot": seconds * 1e6 / cfg.T, "seconds": seconds, **got,
+               "first_event_diff_slot": first,
+               "capacity_excess": capacity_excess(tr, spec, faults), "launches": launched}
+        check(launched == expected_launches(name, cfg.T, N, L),
+              f"faults {regime} {name}: launches {launched}")
+        check(row["capacity_excess"] <= 0.0, f"faults {regime} {name}: over capacity")
+        row["errors"] = hold_metrics(f"faults {regime} {name}", got,
+                                     FAULTS_REFERENCE[regime][name],
+                                     DRIFT_BARS if first is not None else {"*": REWARD_RTOL})
+        out[name] = row
+    return out
+
+
+def faults_worker(regime: str, out_path: str) -> int:
+    """The faults phase's subprocess (this script with --faults-worker): one
+    regime's runs with every check, written to ``out_path`` with the
+    kernels' launches (as ``smoke``'s ``launches()`` counts them, and by
+    shape) and the nvcc runs of this process."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import compat
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import oga_step, proj_bisect, sortscan
+
+    # the parent's numerics settings
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    rows = faults_regime(torch, regime)
+    counts = [oga_step.oga_step_fused.launches, sortscan.proj_sortscan.launches,
+              proj_bisect.proj_bisect.launches, fa.flash_attention.kernel_launches["bf16"],
+              fa.flash_attention.kernel_launches["float32"],
+              fa.flash_attention_bwd.kernel_launches["bf16"],
+              fa.flash_attention_bwd.kernel_launches["float32"]]
+    by_shape = {name: {f"{N}x{L}": n for (N, L), n in w.launches_by_shape.items()}
+                for name, w in (("oga_step_fused", oga_step.oga_step_fused),
+                                ("proj_sortscan", sortscan.proj_sortscan))}
+    with open(out_path, "w") as f:
+        json.dump({"rows": rows, "launches": counts, "launches_by_shape": by_shape,
+                   "compiles": compat.backend_compile_count(),
+                   "worker_s": time.perf_counter() - t0, "end": time.time()}, f)
+    return 0
+
+
+def start_faults_workers() -> dict:
+    """The faults phase's worker processes, one a regime of FAULT_REGIMES
+    (this script with --faults-worker), all started at once."""
+    import subprocess
+
+    tmp = tempfile.mkdtemp(prefix="repro-torch-faults-")
+    procs = {}
+    for regime in FAULT_REGIMES:
+        log = open(os.path.join(tmp, f"{regime}.log"), "w")
+        procs[regime] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--faults-worker", regime,
+             os.path.join(tmp, f"{regime}.json")],
+            stdout=log, stderr=subprocess.STDOUT), log)
+    return {"tmp": tmp, "procs": procs, "start": time.time()}
+
+
+def stop_workers(workers: dict) -> None:
+    """Kill whichever of ``start_faults_workers``'s processes still runs,
+    close their logs and remove their directory."""
+    for proc, log in workers["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    shutil.rmtree(workers["tmp"], ignore_errors=True)
+
+
+def faults_phase(workers: dict) -> dict:
+    """benchmarks/bench_faults.py's quick configuration under its four
+    regimes, held to the reference's readings: one worker process of this
+    script a regime, the four at once (``start_faults_workers``; the runs
+    are host-bound, so their slot times are taken beside the other
+    workers' and the lifecycle phase's runs). Waits for the workers and
+    emits their rows. Returns the phase's line with the workers' launches
+    ("launches", "launches_by_shape"), which the lifecycle path adds to its
+    own; "phase_s" is the workers' wall, from their start to the last one's
+    end."""
+    tmp = workers["tmp"]
+    try:
+        results, failed = {}, []
+        for regime, (proc, log) in workers["procs"].items():
+            rc = proc.wait(timeout=FAULTS_WORKER_TIMEOUT_S)
+            if rc != 0:
+                with open(os.path.join(tmp, f"{regime}.log")) as f:
+                    failed.append(f"{regime} (exit {rc}): {f.read()[-3000:]}")
+                continue
+            with open(os.path.join(tmp, f"{regime}.json")) as f:
+                results[regime] = json.load(f)
+    finally:
+        stop_workers(workers)
+    check(not failed, "faults workers failed: " + "\n".join(failed))
+    out = {}
+    for regime, res in results.items():
+        for name, row in res["rows"].items():
             emit({"phase": "faults", "regime": regime, "algorithm": name, **row})
-            check(launched == expected_launches(name, cfg.T, N, L),
-                  f"faults {regime} {name}: launches {launched}")
-            check(row["capacity_excess"] <= 0.0, f"faults {regime} {name}: over capacity")
-            row["errors"] = hold_metrics(f"faults {regime} {name}", got,
-                                         FAULTS_REFERENCE[regime][name],
-                                         DRIFT_BARS if first is not None else {"*": REWARD_RTOL})
             out[f"{regime}/{name}"] = row
+    compiles = {r: res["compiles"] for r, res in results.items()}
+    check(not any(compiles.values()), f"a faults worker compiled kernels: {compiles}")
+    launches = [sum(res["launches"][i] for res in results.values()) for i in range(7)]
+    by_shape = {}
+    for res in results.values():
+        for name, shapes in res["launches_by_shape"].items():
+            for shape, n in shapes.items():
+                by_shape.setdefault(name, {})[shape] = by_shape.get(name, {}).get(shape, 0) + n
+    phase_s = max(res["end"] for res in results.values()) - workers["start"]
+    runs_s = sum(r["seconds"] for r in out.values())
     line = {"phase": "faults", "config": FAULTS_CFG, "regimes": FAULT_REGIMES,
             "bars": {"no_drift": REWARD_RTOL, "drift": DRIFT_BARS},
-            "phase_s": time.perf_counter() - t_phase,
+            "workers": len(results), "phase_s": phase_s, "runs_s": runs_s,
+            "phase_over_runs": phase_s / runs_s,
+            "worker_s": {r: res["worker_s"] for r, res in results.items()},
             "goodput": {k: r["goodput"] for k, r in out.items()},
             "first_event_diff_slot": {k: r["first_event_diff_slot"] for k, r in out.items()},
-            "worst_error": max(max(r["errors"].values()) for r in out.values())}
-    emit(line)
+            "worst_error": max(max(r["errors"].values()) for r in out.values()),
+            "launches": launches, "launches_by_shape": by_shape}
+    emit({k: v for k, v in line.items() if k not in ("launches", "launches_by_shape")})
     return line
 
 
@@ -3609,6 +3770,9 @@ def extensions_phase(torch, dev, fig2_rewards: np.ndarray) -> dict:
           f"extensions job manager: grants {jobs['grants']} meshes {jobs['meshes']}")
     check(dist["one_shard_y_bitwise"] and dist["feasible"],
           f"extensions §3.2: one shard not bit for bit, or infeasible: {dist}")
+    check(dist["dryrun"]["equal"],
+          f"extensions §3.2: the dry run's per-position bytes are not the shard's: "
+          f"{dist['dryrun']}")
     for n, e in dist["vs_unsharded"].items():
         check(e["y_max_abs"] <= EXT_DIST_Y_ATOL and e["q_rel"] <= EXT_DIST_Q_RTOL,
               f"extensions §3.2 {n} shards vs unsharded: {e}")
@@ -3702,7 +3866,9 @@ def distributed_run(torch, dev) -> dict:
     it; host ms a step (synchronised) and peak device memory."""
     from repro_torch.core import distributed, graph, ogasched
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.sched import trace
+    from repro_torch.train.meshctx import make_mesh
 
     cfg = trace.TraceConfig(**EXT_DIST_CFG)
     t0 = time.perf_counter()
@@ -3744,13 +3910,31 @@ def distributed_run(torch, dev) -> dict:
                 one_shard_bitwise = one_shard_bitwise and bool(torch.equal(got, nxt.y))
             del shards, y_sh, got
         y = nxt.y
-    return {"config": EXT_DIST_CFG, "rows": [cfg.R * cfg.K, cfg.L], "steps": cfg.T,
-            "setup_s": setup_s, "ms_per_step": {str(k): statistics.median(v) for k, v in ms.items()},
-            "ms_per_step_all": {str(k): v for k, v in ms.items()},
-            "vs_unsharded": {str(k): v for k, v in worst.items()},
-            "one_shard_y_bitwise": one_shard_bitwise,
-            "feasible": bool(graph.feasible(spec, y)),
-            "resident_gb": base_gb, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out = {"config": EXT_DIST_CFG, "rows": [cfg.R * cfg.K, cfg.L], "steps": cfg.T,
+           "setup_s": setup_s, "ms_per_step": {str(k): statistics.median(v) for k, v in ms.items()},
+           "ms_per_step_all": {str(k): v for k, v in ms.items()},
+           "vs_unsharded": {str(k): v for k, v in worst.items()},
+           "one_shard_y_bitwise": one_shard_bitwise,
+           "feasible": bool(graph.feasible(spec, y)),
+           "resident_gb": base_gb, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # the dry run's scheduler cell at the widest mesh: one position's
+    # argument bytes against the tensors a shard of the step holds
+    n = max(EXT_DIST_SHARDS)
+    t0 = time.perf_counter()
+    rec = dryrun.run_sched_cell(mesh=make_mesh((n,), ("data",), ["meta"] * n))
+    ADDED_SECONDS["extensions"] = time.perf_counter() - t0
+    shard = distributed.shard_spec(spec, meshes[n])[0]
+    held = {"spec": sum(getattr(shard, f).nbytes for f in graph.ClusterSpec.FIELDS),
+            "y": distributed.shard_y(y, meshes[n])[0].nbytes, "x": arr[0].nbytes,
+            "eta": eta.nbytes}
+    out["dryrun"] = {"shards": n, "argument_parts": rec["argument_parts"], "held": held,
+                     "memory": rec["memory"], "cost": rec["cost"],
+                     "collectives": rec["collectives"],
+                     "equal": rec["argument_parts"] == held
+                     and rec["memory"]["argument_size_in_bytes"] == sum(held.values()),
+                     "seconds": ADDED_SECONDS["extensions"]}
+    del shard
+    return out
 
 
 def multi_errors(multi: dict, ref: dict) -> dict:
@@ -3801,6 +3985,9 @@ def main() -> int:
         # the resume phase's subprocess (this script's own worker mode)
         ckpt_dir, out_path, speed = sys.argv[2:5]
         return resume_worker(ckpt_dir, out_path, speed == "slow")
+    if sys.argv[1:2] == ["--faults-worker"]:
+        # the faults phase's subprocesses, one a regime
+        return faults_worker(*sys.argv[2:4])
     with tempfile.TemporaryDirectory(prefix="repro-torch-autotune-") as cache_dir:
         # a fresh autotune table: no earlier run's winners decide what runs
         os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache_dir
@@ -3815,6 +4002,8 @@ def smoke(torch) -> dict:
     """Every phase; raises on the first failed check. Returns the device
     entry of the last line."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import compat
+    from repro_torch.analysis import roofline as rl
     from repro_torch.core import ogasched
     from repro_torch.device import gpu_name_and_power_limit, platform_info
     from repro_torch.kernels import _launch, autotune, build, ops, ref
@@ -3843,9 +4032,12 @@ def smoke(torch) -> dict:
     # ---------------------------------------------------------------- build
     shutil.rmtree(build.build_dir(), ignore_errors=True)
     t0 = time.perf_counter()
-    per_source = build.build()
+    with compat.CompilationCounter() as compiled:
+        per_source = build.build()
     build_s = time.perf_counter() - t0
     check(set(per_source) == set(build.SOURCES), f"not every source was built: {per_source}")
+    check(compiled.supported and compiled.count == len(build.SOURCES),
+          f"the build ran {compiled.count} nvcc for {len(build.SOURCES)} sources")
     ptxas = {}
     for src in build.SOURCES:
         log = build.library_path(src).with_suffix(".log").read_text()
@@ -3873,6 +4065,7 @@ def smoke(torch) -> dict:
             flash_bwd_build[label].update({"smem_bytes": layout(hd, int("dq_kernel" in label)),
                                            "stages": layout(hd, 2)})
     emit({"phase": "build", "seconds": build_s, "per_source_s": per_source,
+          "compiles": compiled.count,
           "flags": list(build.NVCC_FLAGS), "ptxas": ptxas, "flash_f32_kernels": flash_build,
           "flash_bwd_kernels": flash_bwd_build})
     check(sorted(flash_build) == sorted(autotune.FLASH_HEAD_DIMS),
@@ -4006,30 +4199,8 @@ def smoke(torch) -> dict:
             c[::loose_every] = 1e4
         return z, a, m, c
 
-    def oga_bytes(N, L):
-        return 4 * N * (6 * L + 5)
-
-    def proj_bytes(N, L):
-        return 4 * N * (4 * L + 1)
-
-    def proj_ops(N, L):
-        """Float operations of the block-per-row sortscan on N rows: the
-        bitonic network, two scans and six block reductions over P slots,
-        plus the O(L) clip and recompute passes."""
-        p = max(32, 1 << max(0, (2 * L - 1)).bit_length())
-        lg = p.bit_length() - 1
-        return N * (p // 2 * lg * (lg + 1) // 2 + 2 * p * lg + 6 * p + 12 * L)
-
-    def bisect_ops(N, L, n_need, iters):
-        """Float32 operations of the bisection on N rows: the box clip of
-        every lane, and (iters + 4) clipped row sums on the n_need rows the
-        capacity binds (the others leave after the first sum)."""
-        return 4 * N * L + n_need * (iters + 4) * 5 * L
-
-    def bound(nbytes, nops, ops_per_s=FP64_OPS_PER_S):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / ops_per_s * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    def kernel_bytes(kernel, N, L):
+        return int(rl.kernel_cost_model(kernel, N, L)["bytes"])
 
     def feasible(y, a, m, c):
         """Largest violation of 0 <= y <= a, y = 0 on masked lanes and
@@ -4071,14 +4242,14 @@ def smoke(torch) -> dict:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(err <= OGA_STEP_ATOL, f"oga_step_fused {label} max abs err {err}")
-        t_b, by = bound(oga_bytes(N, L), proj_ops(N, L) + 16 * N * L)
+        t_b, by = rl.kernel_bound("oga_step", N, L)
         oga_rows[label] = {
             "N": N, "L": L, "max_abs_err": err,
             "ms": time_ms(lambda: ops.oga_step_fused(*args)),
             "plain_ms": time_ms(lambda: ref.oga_step_ref(*args)),
             "call_ms": call_ms(lambda: ops.oga_step_fused(*args)),
             "plain_call_ms": call_ms(lambda: ref.oga_step_ref(*args)),
-            "bound_ms": t_b, "bound_by": by, "bytes": oga_bytes(N, L),
+            "bound_ms": t_b, "bound_by": by, "bytes": kernel_bytes("oga_step", N, L),
             "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
         }
         oga_rows[label]["ms_by_row_block"], oga_rows[label]["launch_floor_ms_by_row_block"] = \
@@ -4096,14 +4267,14 @@ def smoke(torch) -> dict:
         err = float((got - want).abs().max())
         del got, want
         check(err <= OGA_STEP_ATOL, f"oga_step_fused {label} max abs err {err}")
-        t_b, by = bound(oga_bytes(N, L), proj_ops(N, L) + 16 * N * L)
+        t_b, by = rl.kernel_bound("oga_step", N, L)
         plain_reps = EXT_PLAIN_REPS if N >= PLAIN_CHUNK_ROWS else TIMING_REPS
         ext_rows[label] = {
             "N": N, "L": L, "max_abs_err": err,
             "ms": time_ms(lambda: ops.oga_step_fused(*args)),
             "plain_ms": autotune.device_time_ms(plain, plain_reps), "plain_reps": plain_reps,
             "plain_row_block": min(N, PLAIN_CHUNK_ROWS),
-            "bound_ms": t_b, "bound_by": by, "bytes": oga_bytes(N, L),
+            "bound_ms": t_b, "bound_by": by, "bytes": kernel_bytes("oga_step", N, L),
             "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
         }
     bisect_pin = autotune.KernelConfig(autotune.DEFAULT_ROW_BLOCK, "bisect",
@@ -4120,8 +4291,7 @@ def smoke(torch) -> dict:
         check(err <= BISECT_ATOL, f"oga_step_fused bisect {label} max abs err {err}")
         check(err_sortscan <= BISECT_ATOL,
               f"oga_step_fused bisect {label} vs sortscan method {err_sortscan}")
-        t_b, by = bound(oga_bytes(N, L), bisect_ops(N, L, N, bisect_pin.iters) + 16 * N * L,
-                        FP32_OPS_PER_S)
+        t_b, by = rl.kernel_bound("oga_step", N, L, "bisect", bisect_pin.iters)
         oga_bisect_rows[label] = {
             "N": N, "L": L, "iters": bisect_pin.iters, "max_abs_err": err,
             "vs_sortscan_max_abs": err_sortscan,
@@ -4145,8 +4315,7 @@ def smoke(torch) -> dict:
         check(oracle_err <= BISECT_ATOL, f"proj_bisect {label} max abs err vs oracle {oracle_err}")
         overshoot = feasible(y, a, m, c)
         n_need = int(((np.clip(z, 0.0, a) * m).sum(1) > c).sum())
-        t_b, by = bound(proj_bytes(N, L), bisect_ops(N, L, n_need, autotune.DEFAULT_BISECT_ITERS),
-                        FP32_OPS_PER_S)
+        t_b, by = rl.kernel_bound("proj", N, L, "bisect", autotune.DEFAULT_BISECT_ITERS, n_need)
         bisect_rows[label] = {
             "N": N, "L": L, "iters": autotune.DEFAULT_BISECT_ITERS, "rows_binding": n_need,
             "max_abs_err": err, "oracle_err": oracle_err, "capacity_overshoot": overshoot,
@@ -4154,7 +4323,7 @@ def smoke(torch) -> dict:
             "plain_ms": time_ms(lambda: ref.proj_rows_bisect(*args)),
             "call_ms": call_ms(lambda: ops.proj_bisect(*args)),
             "plain_call_ms": call_ms(lambda: ref.proj_rows_bisect(*args)),
-            "bound_ms": t_b, "bound_by": by, "bytes": proj_bytes(N, L),
+            "bound_ms": t_b, "bound_by": by, "bytes": kernel_bytes("proj", N, L),
             "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK, "bisect"),
         }
     proj_rows = {}
@@ -4172,7 +4341,7 @@ def smoke(torch) -> dict:
         check(oracle_err <= PROJ_ATOL,
               f"proj_sortscan {label} max abs err vs float64 oracle {oracle_err}")
         check(err <= PROJ_PLAIN_ATOL, f"proj_sortscan {label} max abs err vs plain {err}")
-        t_b, by = bound(proj_bytes(N, L), proj_ops(N, L))
+        t_b, by = rl.kernel_bound("proj", N, L)
         proj_rows[label] = {
             "N": N, "L": L, "max_abs_err": err, "oracle_err": oracle_err,
             "plain_oracle_err": plain_oracle_err,
@@ -4180,7 +4349,7 @@ def smoke(torch) -> dict:
             "plain_ms": time_ms(lambda: ref.proj_rows_sorted(*args)),
             "call_ms": call_ms(lambda: ops.proj_sortscan(*args)),
             "plain_call_ms": call_ms(lambda: ref.proj_rows_sorted(*args)),
-            "bound_ms": t_b, "bound_by": by, "bytes": proj_bytes(N, L),
+            "bound_ms": t_b, "bound_by": by, "bytes": kernel_bytes("proj", N, L),
             "launch_floor_ms": floor_ms(N, L, autotune.DEFAULT_ROW_BLOCK),
         }
         proj_rows[label]["ms_by_row_block"], proj_rows[label]["launch_floor_ms_by_row_block"] = \
@@ -4224,10 +4393,9 @@ def smoke(torch) -> dict:
         step_bis_err = float((step_bis - ref.oga_step_ref(*sargs, proj="bisect")).abs().max())
         check(step_bis_err <= BISECT_ATOL, f"oga_step_fused bisect L={L} vs plain {step_bis_err}")
         n_need = int(((np.clip(z, 0.0, a) * m).sum(1) > c).sum())
-        t_p, by_p = bound(proj_bytes(N, L), proj_ops(N, L))
-        t_s, by_s = bound(oga_bytes(N, L), proj_ops(N, L) + 16 * N * L)
-        t_b, by_b = bound(proj_bytes(N, L), bisect_ops(N, L, n_need, autotune.DEFAULT_BISECT_ITERS),
-                          FP32_OPS_PER_S)
+        t_p, by_p = rl.kernel_bound("proj", N, L)
+        t_s, by_s = rl.kernel_bound("oga_step", N, L)
+        t_b, by_b = rl.kernel_bound("proj", N, L, "bisect", autotune.DEFAULT_BISECT_ITERS, n_need)
         wide_rows[str(L)] = {
             "N": N, "L": L, "slots": autotune.slots_for(L),
             "threads": autotune.row_threads(L),
@@ -4434,8 +4602,14 @@ def smoke(torch) -> dict:
     # where one OGASCHED slot's time goes: device time by kernel, 100 slots
     from torch.profiler import ProfilerActivity, profile
     sub = arr2[:100]
-    ogasched.run(spec2, sub, eta0=25.0)
+    # the warm-up run under the sync guard: a host sync inside it raises
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with compat.sync_guard("error"):
+        guarded, _ = ogasched.run(spec2, sub, eta0=25.0)
+    torch.cuda.synchronize()
+    guard_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(guarded).all()), "fig2: the guarded run's rewards are not finite")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ogasched.run(spec2, sub, eta0=25.0)
@@ -4463,7 +4637,8 @@ def smoke(torch) -> dict:
           "reference": FIG2_REFERENCE, "per_slot_us": per_slot_us(res2, cfg2.T),
           "reference_backend_per_slot_us": ref_us,
           "fused_vs_reference_backend_max_abs": traj_err,
-          "fused_launches": n1[0] - n0[0], "ogasched_slot_profile": slot_profile})
+          "fused_launches": n1[0] - n0[0], "ogasched_slot_profile": slot_profile,
+          "sync_guarded_run": {"slots": int(sub.shape[0]), "mode": "error", "seconds": guard_s}})
 
     # regret
     n0 = launches()
@@ -4560,14 +4735,26 @@ def smoke(torch) -> dict:
     del batch, spec_g, arr_g, out_g, spec2, arr2, sub
     torch.cuda.empty_cache()
     zero_launches()
-    lifecycle_phase(torch, dev)
-    faults_phase(torch, dev)
+    workers = start_faults_workers()
+    done = {}
+    try:
+        lifecycle_phase(torch, dev,
+                        beside=lambda: done.setdefault("faults", faults_phase(workers)))
+    finally:
+        stop_workers(workers)   # a no-op once faults_phase has collected them
+    faults = done["faults"]
     grid_lifecycle_phase(torch, dev)
-    lifecycle_counts = launches()
+    # the faults workers' launches are the lifecycle path's too
+    lifecycle_counts = tuple(n + w for n, w in zip(launches(), faults["launches"]))
     for name, n in zip(names[:2], lifecycle_counts):
         check(n > 0, f"{name} was not launched on the lifecycle path")
-    lifecycle_by_shape = {name: {f"{N}x{L}": n for (N, L), n in sorted(w.launches_by_shape.items())}
-                          for name, w in zip(names[:2], wrappers[:2])}
+    lifecycle_by_shape = {}
+    for name, w in zip(names[:2], wrappers[:2]):
+        shapes = {f"{N}x{L}": n for (N, L), n in w.launches_by_shape.items()}
+        for shape, n in faults["launches_by_shape"].get(name, {}).items():
+            shapes[shape] = shapes.get(shape, 0) + n
+        lifecycle_by_shape[name] = dict(sorted(shapes.items(),
+                                               key=lambda kv: tuple(map(int, kv[0].split("x")))))
 
     # ---------------------------------------------------------- stream path
     torch.cuda.empty_cache()
@@ -4777,6 +4964,13 @@ def smoke(torch) -> dict:
         "ms_per_step", "tokens_per_s", "peak_memory_gb")}
     kernels[5]["train_step"]["flash_bwd_share_of_step"] = \
         train_full_line["profile"]["flash_bwd_share_of_step"]
+    # no phase after build compiled a kernel (the faults workers checked
+    # their own count); the added parts' seconds against their budget
+    later = compat.backend_compile_count() - compiled.count
+    emit({"phase": "added_parts", "seconds": ADDED_SECONDS,
+          "total_s": sum(ADDED_SECONDS.values()), "budget_s": ADDED_PARTS_BUDGET_S,
+          "compiles_after_build": later})
+    check(later == 0, f"{later} kernel compiles after the build phase")
     emit({"kernels": kernels})
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}

@@ -29,7 +29,10 @@ def init_state(spec: ClusterSpec, eta0: float) -> OGAState:
     """Slot mode starts from y(1) = 0 (a random feasible start arrives with
     the lifecycle slice; ``run`` takes an explicit ``y0``)."""
     y = zeros_like_decision(spec)
-    eta = torch.as_tensor(eta0, dtype=spec.a.dtype, device=spec.device)
+    # a Python number is filled in on the device: copying it from the host
+    # would make the host wait for the card
+    eta = (eta0.to(dtype=spec.a.dtype, device=spec.device) if isinstance(eta0, torch.Tensor)
+           else torch.full((), eta0, dtype=spec.a.dtype, device=spec.device))
     return OGAState(y=y, eta=eta, t=0)
 
 

@@ -7,7 +7,6 @@ that the reference gets from ``vmap`` is written out here.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import utilities
 from repro_torch.core.graph import ClusterSpec
@@ -79,7 +78,8 @@ def reward_grad(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Te
     g = utilities.util_grad(kinds, alpha, ym)                           # (.., L, R, K)
     s = ym.sum(-2)                                                      # (.., L, K)
     kstar = torch.argmax(spec.beta[..., None, :] * s, dim=-1)           # (.., L)
-    is_kstar = F.one_hot(kstar, spec.K).to(y.dtype)                     # (.., L, K)
+    # one-hot by comparison: torch.nn.functional.one_hot reads the indices on the host
+    is_kstar = (kstar[..., None] == torch.arange(spec.K, device=kstar.device)).to(y.dtype)
     grad = g - spec.beta[..., None, None, :] * is_kstar[..., :, None, :]
     return x.to(y.dtype)[..., :, None, None] * grad * m
 

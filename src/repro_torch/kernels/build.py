@@ -33,6 +33,9 @@ NVCC_FLAGS = (
 )
 # seconds one nvcc may take before the build is declared hung
 NVCC_TIMEOUT_S = 600
+# nvcc runs this process has started, one a source compiled
+# (``compat.CompilationCounter`` reads it)
+compiles = 0
 
 
 def build_dir() -> Path:
@@ -57,8 +60,10 @@ def build() -> dict:
 
     Returns {source: seconds its nvcc took} for the sources compiled in this
     call (an empty dict when every library was already built). Raises with
-    nvcc's output when a compile fails.
+    nvcc's output when a compile fails. Each nvcc started adds one to
+    ``compiles``.
     """
+    global compiles
     todo = [s for s in SOURCES if not library_path(s).exists()]
     if not todo:
         return {}
@@ -75,6 +80,7 @@ def build() -> dict:
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                       tmp, out, log)
+        compiles += 1
     seconds, failed = {}, []
     for src, (proc, tmp, out, log) in procs.items():
         try:

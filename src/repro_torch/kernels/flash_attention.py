@@ -19,6 +19,12 @@ forward reads q by plain loads; the backward's of q, k, v, o and dO in
 both dtypes). Other strides are read as they are: nothing is transposed
 or copied.
 
+Meta tensors (the dry run's, ``launch.dryrun``) take the same checks and
+get outputs of the kernels' shapes and dtypes from a custom op that
+launches nothing (``repro_torch::flash_attention_meta`` and
+``repro_torch::flash_attention_bwd_meta``), whose FLOPs
+``torch.utils.flop_counter`` counts by ``analysis.roofline.flash_flops``.
+
 ``f32_layout`` and ``f32_schedule`` state, in Python, how the float32
 kernel packs the query heads of a KV head into a block and which K/V
 tiles each block visits, with or without the per-element mask;
@@ -31,7 +37,9 @@ import math
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.analysis import roofline
 from repro_torch.kernels import _launch, autotune, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -179,6 +187,46 @@ def bwd_f32_schedule(S: int, window: int, rep: int) -> dict:
     return {"dkdv": dkdv, "dq": f32_schedule(S, window, rep, bk, bt)}
 
 
+# ------------------------------------------------------------ meta tensors --
+@torch.library.custom_op("repro_torch::flash_attention_meta", mutates_args=())
+def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+                return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward's outputs on meta tensors: o like q, and lse (B, H, S)
+    (empty without ``return_lse``)."""
+    raise ValueError(f"the meta stand-in of flash attention takes meta tensors, not {q.device}")
+
+
+@_flash_meta.register_fake
+def _(q, k, v, window, return_lse):
+    B, S, H, _ = q.shape
+    lse = q.new_empty((B, H, S) if return_lse else (0,), dtype=ref._acc_dtype(q.dtype))
+    return torch.empty_like(q, memory_format=torch.contiguous_format), lse
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
+def _flash_meta_flops(q_shape, k_shape, v_shape, window, return_lse, *args, **kwargs) -> int:
+    B, S, H, hd = q_shape
+    return roofline.flash_flops(B, S, H, hd, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_meta", mutates_args=())
+def _flash_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's outputs on meta tensors: dq, dk, dv like q, k, v."""
+    raise ValueError(f"the meta stand-in of flash attention takes meta tensors, not {q.device}")
+
+
+@_flash_bwd_meta.register_fake
+def _(q, k, v, window):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_meta)
+def _flash_bwd_meta_flops(q_shape, k_shape, v_shape, window, *args, **kwargs) -> int:
+    B, S, H, hd = q_shape
+    return roofline.flash_flops(B, S, H, hd, window, roofline.BWD_PRODUCTS)
+
+
 def flash_attention(q, k, v, *, window: Optional[int] = None,
                     softcap: Optional[float] = None, return_lse: bool = False):
     """Causal attention of q (B, S, H, hd) over k, v (B, S, G, hd); query
@@ -190,10 +238,14 @@ def flash_attention(q, k, v, *, window: Optional[int] = None,
 
     CUDA tensors: one launch of the bf16 or the float32 kernel, counted in
     ``flash_attention.launches`` and in ``flash_attention.kernel_launches``
-    under the dtype's name. CPU tensors: ``ref.flash_attention_ref``.
+    under the dtype's name. CPU tensors: ``ref.flash_attention_ref``. Meta
+    tensors: outputs of those shapes and dtypes, nothing launched.
     """
     _check_inputs(q, k, v)
     w = int(window) if window is not None and int(window) > 0 else 0
+    if q.device.type == "meta":
+        o, lse = _flash_meta(q, k, v, w, return_lse)
+        return (o, lse) if return_lse else o
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, window=w or None, softcap=softcap,
                                        return_lse=return_lse)
@@ -263,7 +315,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
     whole FLASH_BWD_TC_BLOCK_ROWS blocks), counted in
     ``flash_attention_bwd.launches`` and under the dtype's name in
     ``flash_attention_bwd.kernel_launches``. CPU tensors:
-    ``ref.flash_attention_bwd_ref``.
+    ``ref.flash_attention_bwd_ref``. Meta tensors: gradients of those
+    shapes and dtypes, nothing launched.
     """
     _check_inputs(q, k, v, q_by_tma=True)
     for name, t in (("o", o), ("do", do)):
@@ -283,6 +336,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, window: Optional[int] = None,
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} on {lse.device} is not a "
                          f"contiguous {ref._acc_dtype(q.dtype)} {want} on {q.device}")
     w = int(window) if window is not None and int(window) > 0 else 0
+    if q.device.type == "meta":
+        return _flash_bwd_meta(q, k, v, w)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, window=w or None,
                                            softcap=softcap)

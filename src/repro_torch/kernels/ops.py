@@ -14,7 +14,6 @@ and its gradient to their kernels' wrappers.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import projection as _projection
 from repro_torch.core import reward as _reward
@@ -100,7 +99,7 @@ def _kstar_rows(spec, y: torch.Tensor, kstar=None) -> torch.Tensor:
     y unless ``kstar`` ((.., L) indices) is given."""
     L, R, K = spec.L, spec.R, spec.K
     kstar = kstar_index(spec, y) if kstar is None else kstar
-    onehot = F.one_hot(kstar, K).to(y.dtype)                            # (.., L, K)
+    onehot = (kstar[..., None] == torch.arange(K, device=kstar.device)).to(y.dtype)  # (.., L, K)
     lead = tuple(y.shape[:-3])
     return onehot.transpose(-1, -2)[..., None, :, :].expand(*lead, R, K, L).reshape(
         *lead, R * K, L).contiguous()

@@ -11,9 +11,10 @@ requires one) it runs ``FlashAttention``, whose backward is the
 hand-written backward kernels on the card (``ops.flash_attention_bwd``)
 and their plain version on the CPU (``ref.flash_attention_bwd_ref``): the
 reference takes that gradient by autodiff of its jnp attention. On a CUDA
-tensor neither pass falls back to torch ops. ``decode_attention`` is
-plain torch on either device, as the reference's is jnp outside any
-kernel.
+tensor neither pass falls back to torch ops. Meta tensors (the dry run's)
+go to the wrappers too, which give the kernels' output shapes and launch
+nothing. ``decode_attention`` is plain torch on either device, as the
+reference's is jnp outside any kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.models.layers import softcap
 
 
 def _forward(q, k, v, window, attn_softcap, return_lse=False):
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return ops.flash_attention(q, k, v, window=window, softcap=attn_softcap,
                                    return_lse=return_lse)
     return ref.flash_attention_ref(q, k, v, window=window, softcap=attn_softcap,
@@ -53,7 +54,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         w, cap = ctx.window, ctx.attn_softcap
-        if q.device.type == "cuda":
+        if q.device.type in ("cuda", "meta"):
             dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), window=w,
                                                  softcap=cap)
         else:

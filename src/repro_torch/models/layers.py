@@ -76,7 +76,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Sequence[int
     assert sum(sections) == hd // 2, (sections, hd)
     inv = rope_freqs(hd, theta, x.device)
     sec_id = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
-                                     torch.tensor(list(sections), device=x.device))
+                                     torch.tensor(list(sections), device=x.device),
+                                     output_size=hd // 2)
     ang = positions.float()[..., sec_id] * inv  # (B, S, hd/2)
     return _rotate(x, torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :])
 

@@ -23,6 +23,11 @@ def pytest_configure(config):
         "cuda: needs a CUDA card and nvcc (the port's kernels); skips with a "
         "reason on a host without them",
     )
+    config.addinivalue_line(
+        "markers",
+        "torch_sanitized: a port path run under repro_torch.compat.sync_guard "
+        "(a host sync on a CUDA tensor raises)",
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -974,3 +974,81 @@ def test_moe_ep_on_the_card_matches_cpu(dev, cf):
     want = tmoe.apply_mlp_ep(mlp, x, None, cpu)
     got = tmoe.apply_mlp_ep(_to(mlp, dev), x.to(dev), None, card)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ------------------------------------------------------------- sanitizers --
+def test_sync_guard_raises_on_a_host_read_of_a_cuda_tensor(dev):
+    from repro_torch import compat
+
+    t = torch.ones(4, device=dev)
+    before = torch.cuda.get_sync_debug_mode()
+    with compat.sync_guard("error"):
+        with pytest.raises(RuntimeError):
+            t.sum().item()
+        with pytest.raises(RuntimeError):
+            t[t > 0]
+        (t * 2).sum()                       # stays on the card: no error
+    assert torch.cuda.get_sync_debug_mode() == before
+    float(t.sum())                          # the mode is restored
+
+
+@pytest.mark.torch_sanitized
+@pytest.mark.parametrize("path", ["path_reward_grad", "path_projection_fill", "path_oga_run",
+                                  "path_regret_curve"])
+def test_sanitized_paths_run_clean_on_the_card(dev, path):
+    """The four paths of tests/test_torch_sanitizers.py on the card under
+    ``sync_guard("error")``, their results read back after it and held to
+    the same paths on the CPU (the card's projection solves in double,
+    the CPU's in float32: 1e-4 of each result's largest magnitude)."""
+    import test_torch_sanitizers as san
+
+    card, cpu = san.stage_all(dev), san.stage_all("cpu")
+    torch.cuda.synchronize()
+    with san.guards():
+        got = getattr(san, path)(card)
+    want = getattr(san, path)(cpu)
+    got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple)
+                                                            else (want,))
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, path
+
+
+def test_warm_build_compiles_nothing(dev):
+    from repro_torch import compat
+    from repro_torch.kernels import build
+
+    build.build()
+    with compat.CompilationCounter() as c:
+        assert build.build() == {}
+    assert c.supported and c.count == 0
+
+
+def test_tune_compiles_nothing_during_its_trials(dev, cache):
+    from repro_torch import compat
+
+    ops.oga_step_fused(*_step_args(_rng(11), 768, 10, dev))   # the libraries loaded
+    with compat.CompilationCounter() as c:
+        win, measured = autotune.tune("oga_step", 768, 10, repeats=3, store=False)
+    assert len(measured) > 1 and c.supported and c.count == 0
+
+
+def test_flash_meta_branch_returns_the_kernels_shapes(dev):
+    """Meta tensors get the kernels' output shapes and dtypes with nothing
+    launched; the card's path on the same shapes still launches."""
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(2, 128, 8, 64, device=dev, dtype=dt)
+        k, v = (torch.randn(2, 128, 2, 64, device=dev, dtype=dt) for _ in range(2))
+        qm, km, vm = (t.to("meta") for t in (q, k, v))
+        n0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+        o_m, lse_m = tfa.flash_attention(qm, km, vm, window=64, return_lse=True)
+        dq, dk, dv = tfa.flash_attention_bwd(qm, km, vm, o_m, lse_m, o_m, window=64)
+        assert (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches) == (n0, b0)
+        o, lse = tfa.flash_attention(q, k, v, window=64, return_lse=True)
+        g = tfa.flash_attention_bwd(q, k, v, o, lse, o, window=64)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == n0 + 1
+        assert tfa.flash_attention_bwd.launches == b0 + 1
+        for m, c in ((o_m, o), (lse_m, lse), (dq, g[0]), (dk, g[1]), (dv, g[2])):
+            assert m.device.type == "meta"
+            assert (m.shape, m.dtype, m.stride()) == (c.shape, c.dtype, c.stride())
