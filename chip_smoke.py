@@ -7,6 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each printing one JSON line:
 
+  lint     the port's lint (repro_torch.analysis.lint, every rule) over
+           src/repro_torch and this script in the checkout: no finding, in
+           at most LINT_SECONDS_BAR seconds.
   build    nvcc builds the kernels of src/repro_torch/kernels/csrc afresh,
            one nvcc a source (compat.CompilationCounter: 4; no later phase
            may compile, which the script checks at its end);
@@ -598,6 +601,8 @@ DRYRUN_PEAK_RATIO_BARS = {"train": (0.95, 1.01), "lm_prefill": (0.95, 1.01)}
 ADDED_PARTS_BUDGET_S = 10.0
 # the seconds each of those parts took, filled in as they run
 ADDED_SECONDS: dict = {}
+# the lint phase reads about 90 files; it must stay a small share of the run
+LINT_SECONDS_BAR = 5.0
 # every family's reduced config (float32, head dim 16), one train step on
 # the card against the CPU (the bars above); the Trainer's restart on the
 # card (reduced stablelm-3b, 8 steps, checkpoints every 4, a failure
@@ -2395,7 +2400,7 @@ def train_kernel_checks(torch, dev) -> dict:
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev)
-    gen.manual_seed(LM_SEED + 22)
+    gen.manual_seed(int(np.random.SeedSequence(LM_SEED, spawn_key=(22,)).generate_state(1)[0]))
     cases = ([(shape, w, cap, None) for shape, w, cap in BWD_SMALL_CASES]
              + [(shape, w, cap, label) for label, (shape, w, cap) in BWD_PATH_SHAPES.items()])
     small, path = {"float32": [], "bfloat16": []}, {}
@@ -3998,6 +4003,22 @@ def main() -> int:
     return 0
 
 
+def lint_phase() -> dict:
+    """The port's lint over the port and this script, in the checkout the
+    kernels are built from; raises on any finding."""
+    from repro_torch.analysis import lint
+
+    t0 = time.perf_counter()
+    paths = [os.path.join(ROOT, "src", "repro_torch"), os.path.join(ROOT, "chip_smoke.py")]
+    files = list(lint.iter_py_files(paths))
+    findings = lint.lint_paths(paths)
+    seconds = time.perf_counter() - t0
+    check(not findings, "the port's lint found:\n" + lint.render_text(findings))
+    check(seconds <= LINT_SECONDS_BAR, f"the lint took {seconds:.2f} s")
+    return {"phase": "lint", "files": len(files), "rules": sorted(lint.RULES),
+            "findings": len(findings), "seconds": seconds}
+
+
 def smoke(torch) -> dict:
     """Every phase; raises on the first failed check. Returns the device
     entry of the last line."""
@@ -4027,6 +4048,7 @@ def smoke(torch) -> dict:
     check(smi is not None, "nvidia-smi is missing")
     print(smi, flush=True)
     emit({"phase": "platform", **platform_info()})
+    emit(lint_phase())
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- build

@@ -1,3 +1,3 @@
-"""Measurement half of the analysis layer (counterpart of
-``repro.analysis``): the H100 roofline (``roofline``) and the dry run's
-markdown table (``report``)."""
+"""The analysis layer (counterpart of ``repro.analysis``): the H100
+roofline (``roofline``), the dry run's markdown table (``report``) and the
+port's static analysis (``lint``)."""

@@ -3,7 +3,11 @@ of ``tests/test_sanitizers.py``.
 
 The four paths the reference runs under ``transfer_guard("disallow")``
 (the reward gradient, the projection's capacity fill, ``ogasched.run`` and
-the regret curve) run here under ``compat.sync_guard("error")``, which on
+the regret curve), and the other per-slot loops that the port's lint
+(``repro_torch.analysis.lint``, rule ``host-sync-in-hot-loop``) calls clean
+(``baselines.run`` of every baseline, ``lifecycle.run`` of every algorithm
+under capacity faults, ``regret.offline_optimum_batch``), run here under
+``compat.sync_guard("error")``, which on
 a CUDA tensor raises at any operation that makes the host wait for the
 card, and under ``NoHostSync``, which raises at the operations that would
 (a scalar read, ``nonzero``, a boolean mask) on any device, so the paths
@@ -28,9 +32,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import compat
-from repro_torch.core import graph, ogasched, projection, regret, reward
+from repro_torch.core import baselines, graph, ogasched, projection, regret, reward
 from repro_torch.kernels import build
-from repro_torch.sched import trace
+from repro_torch.sched import lifecycle, trace
 
 # operations that read a device value on the host: the host waits there
 _SYNC_OPS = {torch.ops.aten._local_scalar_dense, torch.ops.aten.nonzero,
@@ -62,15 +66,26 @@ def staged(seed: int, device):
     return trace.build_spec(cfg, device), trace.build_arrivals(cfg, device=device), cfg
 
 
+# a small faulted trace: the lifecycle's eviction path runs too
+LIFECYCLE_CFG = trace.TraceConfig(L=4, R=6, K=3, T=24, seed=5,
+                                  faults=trace.FaultConfig(fail_rate=0.2, repair_mean=3.0))
+
+
 def stage_all(device) -> dict:
-    """The inputs of the four paths, on ``device``, made before any guard."""
+    """The inputs of the paths, on ``device``, made before any guard."""
     spec0, _, cfg0 = staged(0, device)
     rng = np.random.default_rng(0)
+    lc = LIFECYCLE_CFG
+    grid = [staged(seed, device) for seed in (3, 4)]
     return {"spec0": spec0, "y0": graph.random_feasible_decision(spec0, rng),
             "x0": torch.from_numpy((rng.random(cfg0.L) < 0.7).astype(np.float32)).to(device),
             "run1": staged(1, device), "run2": staged(2, device),
             "eta": torch.full((), 5.0, device=device), "decay": 0.999,
-            "ones": torch.ones(cfg0.L, device=device)}
+            "ones": torch.ones(cfg0.L, device=device),
+            "lifecycle": (trace.build_spec(lc, device), trace.build_arrivals(lc, device=device),
+                          trace.build_works(lc, device), trace.build_faults(lc, device)),
+            "grid": (graph.ClusterSpec.stack([g[0] for g in grid]),
+                     torch.stack([g[1] for g in grid]))}
 
 
 def path_reward_grad(s):
@@ -100,6 +115,21 @@ def path_regret_curve(s):
                               device=spec.device)
     y_star = regret.offline_optimum(spec, arrivals, iters=16, device=spec.device)
     return regret.regret_curve(spec, arrivals, rewards, y_star)
+
+
+def path_baseline(s, name):
+    spec, arrivals, works, _ = s["lifecycle"]
+    return baselines.run(spec, arrivals, name, works=works, device=spec.device)
+
+
+def path_lifecycle(s, name):
+    spec, arrivals, works, faults = s["lifecycle"]
+    return lifecycle.run(spec, arrivals, works, name, faults=faults, device=spec.device)
+
+
+def path_offline_optimum_batch(s):
+    spec, arrivals = s["grid"]
+    return regret.offline_optimum_batch(spec, arrivals, iters=16, device=spec.device)
 
 
 @pytest.fixture(scope="module")
@@ -136,6 +166,34 @@ def test_regret_curve_path_clean_under_guards(cpu_inputs):
     with guards():
         curve = path_regret_curve(cpu_inputs)
     assert curve.shape == (cpu_inputs["run2"][2].T,) and np.isfinite(curve.numpy()).all()
+
+
+@pytest.mark.torch_sanitized
+@pytest.mark.parametrize("name", baselines.ALL_BASELINES)
+def test_baseline_run_clean_under_guards(cpu_inputs, name):
+    with guards():
+        rewards = path_baseline(cpu_inputs, name)
+    assert rewards.shape == (LIFECYCLE_CFG.T,) and np.isfinite(rewards.numpy()).all()
+
+
+@pytest.mark.torch_sanitized
+@pytest.mark.parametrize("name", lifecycle.ALL_ALGORITHMS)
+def test_lifecycle_run_clean_under_guards(cpu_inputs, name):
+    with guards():
+        tr = path_lifecycle(cpu_inputs, name)
+    spec, _, _, faults = cpu_inputs["lifecycle"]
+    assert float(faults.min()) < 1.0  # a capacity fault fired
+    assert tr.rewards.shape == (LIFECYCLE_CFG.T,) and np.isfinite(tr.rewards.numpy()).all()
+    assert tr.admitted.any()
+
+
+@pytest.mark.torch_sanitized
+def test_offline_optimum_batch_clean_under_guards(cpu_inputs):
+    with guards():
+        y = path_offline_optimum_batch(cpu_inputs)
+    spec, _ = cpu_inputs["grid"]
+    assert y.shape == (2, spec.L, spec.R, spec.K) and np.isfinite(y.numpy()).all()
+    assert all(bool(graph.feasible(spec[g], y[g])) for g in range(2))
 
 
 def test_no_host_sync_catches_scalar_reads_and_masks():
