@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import reward
 from repro_torch.core.graph import ClusterSpec, zeros_like_decision
 from repro_torch.device import DeviceLike, resolve_device
@@ -40,11 +41,12 @@ def oga_step(spec, state: OGAState, x, decay, backend: str = "reference",
              operands=None):
     """One slot: observe x(t), collect q(x(t), y(t)), ascend, project.
     Returns (next_state, reward_at_t)."""
-    q_t = reward.total_reward(spec, x, state.y)
-    y_next = ops.oga_update_spec(
-        spec, state.y, x, state.eta, backend=backend, operands=operands,
-    )
-    return OGAState(y=y_next, eta=state.eta * decay, t=state.t + 1), q_t
+    with spans.span("repro_torch.oga_step"):
+        q_t = reward.total_reward(spec, x, state.y)
+        y_next = ops.oga_update_spec(
+            spec, state.y, x, state.eta, backend=backend, operands=operands,
+        )
+        return OGAState(y=y_next, eta=state.eta * decay, t=state.t + 1), q_t
 
 
 def run(spec: ClusterSpec, arrivals, eta0, decay=0.9999,

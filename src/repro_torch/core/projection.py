@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.graph import ClusterSpec
 
 _NEG = -1e30
@@ -164,11 +165,12 @@ def project_spec_rows(spec: ClusterSpec, z: torch.Tensor, c: Optional[torch.Tens
     from repro_torch.kernels import ops  # kernels.ops imports this module
 
     L, R, K = spec.L, spec.R, spec.K
-    a_rows, mask_rows, _ = ops.pack_spec_operands(spec) if operands is None else operands
-    c = spec.c if c is None else c
-    z_rows = ops.pack_rows(z).reshape(-1, L)
-    out = ops.proj_sortscan(z_rows, a_rows, mask_rows, c.reshape(-1).contiguous())
-    return ops.unpack_rows(out.reshape(*z.shape[:-3], R * K, L), L, R, K)
+    with spans.span("repro_torch.ops.project"):
+        a_rows, mask_rows, _ = ops.pack_spec_operands(spec) if operands is None else operands
+        c = spec.c if c is None else c
+        z_rows = ops.pack_rows(z).reshape(-1, L)
+        out = ops.proj_sortscan(z_rows, a_rows, mask_rows, c.reshape(-1).contiguous())
+        return ops.unpack_rows(out.reshape(*z.shape[:-3], R * K, L), L, R, K)
 
 
 def _cell_rows(spec_a, spec_mask, R, K, L):

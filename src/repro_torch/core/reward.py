@@ -8,8 +8,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import utilities
 from repro_torch.core.graph import ClusterSpec
+
+REWARD_SPAN = "repro_torch.reward"
 
 
 def _gain_terms(spec: ClusterSpec, y: torch.Tensor):
@@ -42,22 +45,28 @@ def totals(beta: torch.Tensor, x: torch.Tensor, gain: torch.Tensor, s: torch.Ten
     return (xf * gain).sum(-1), (xf * penalty(beta, s)).sum(-1)
 
 
-def service_rates(spec: ClusterSpec, y: torch.Tensor) -> torch.Tensor:
-    """Per-port speedup utility minus communication penalty (eq. 7 without
-    the arrival multiplier): sum_{r,k} f_r^k(y) - max_k beta_k sum_r y^k."""
+def _service_rates(spec: ClusterSpec, y: torch.Tensor) -> torch.Tensor:
     m, ym, _, _ = _gain_terms(spec, y)
     gain, s = port_sums(spec.kinds, spec.alpha, ym, m)                  # (.., L), (.., L, K)
     return gain - penalty(spec.beta, s)
 
 
+def service_rates(spec: ClusterSpec, y: torch.Tensor) -> torch.Tensor:
+    """Per-port speedup utility minus communication penalty (eq. 7 without
+    the arrival multiplier): sum_{r,k} f_r^k(y) - max_k beta_k sum_r y^k."""
+    with spans.span(REWARD_SPAN):
+        return _service_rates(spec, y)
+
+
 def port_rewards(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """q_l(x, y) for every port (eq. 7). x: (.., L); y: (.., L, R, K)."""
-    return x.to(y.dtype) * service_rates(spec, y)
+    return x.to(y.dtype) * _service_rates(spec, y)
 
 
 def total_reward(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """q(x, y) = sum_l q_l (eq. 8)."""
-    return port_rewards(spec, x, y).sum(-1)
+    with spans.span(REWARD_SPAN):
+        return port_rewards(spec, x, y).sum(-1)
 
 
 def decompose(spec: ClusterSpec, x: torch.Tensor, y: torch.Tensor):

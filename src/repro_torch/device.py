@@ -1,8 +1,8 @@
 """Device resolution and the platform probe.
 
-Counterpart of ``repro.kernels.ops._platform`` / ``backend_provenance``:
-the port's entry points run on ``cuda`` unless the caller names another
-device, and never carry on quietly on the CPU when no card is present.
+Counterpart of ``repro.kernels.ops._platform``: the port's entry points
+run on ``cuda`` unless the caller names another device, and never carry
+on quietly on the CPU when no card is present.
 """
 from __future__ import annotations
 

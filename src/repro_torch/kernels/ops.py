@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import projection as _projection
 from repro_torch.core import reward as _reward
 from repro_torch.kernels import autotune as _at
@@ -24,6 +25,10 @@ from repro_torch.kernels import proj_bisect as _pb
 from repro_torch.kernels import sortscan as _ss
 
 OGA_BACKENDS = ("auto", "fused", "reference")
+# host time from resolving a launch's tiling to the wrapper's return (the
+# operand checks, the launch itself, its counters)
+LAUNCH_SPAN = "repro_torch.launch"
+UPDATE_SPAN = "repro_torch.ops.oga_update"
 
 
 def resolve_oga_backend(backend: str = "auto") -> str:
@@ -31,20 +36,6 @@ def resolve_oga_backend(backend: str = "auto") -> str:
     if backend not in OGA_BACKENDS:
         raise ValueError(f"backend must be one of {OGA_BACKENDS}, got {backend!r}")
     return "fused" if backend == "auto" else backend
-
-
-def backend_provenance(backend: str, device: torch.device) -> dict:
-    """What runs for ``backend`` on ``device``: recorded beside results so
-    an "auto" run says which path it measured."""
-    resolved = resolve_oga_backend(backend)
-    device = torch.device(device)
-    fused_impl = "cuda-kernel" if device.type == "cuda" else "torch-rows"
-    return {
-        "backend_requested": backend,
-        "backend_resolved": resolved,
-        "platform": device.type,
-        "fused_impl": fused_impl if resolved == "fused" else "spec-level",
-    }
 
 
 # ------------------------------------------------------------- row layout --
@@ -124,9 +115,10 @@ def _dispatch_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal, tiling=
     always the exact sortscan, whatever the cache or the pin says: cache
     state changes speed, never values. The bisect A/B goes through
     ``oga_step_fused(tiling=...)``."""
-    cfg = _tiling("oga_step", y_rows, tiling)
-    return _og.oga_step_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal,
-                              method="sortscan", row_block=cfg.row_block)
+    with spans.span(LAUNCH_SPAN):
+        cfg = _tiling("oga_step", y_rows, tiling)
+        return _og.oga_step_fused(y_rows, a_rows, mask_rows, x_rows, kstar_rows, scal,
+                                  method="sortscan", row_block=cfg.row_block)
 
 
 def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
@@ -154,15 +146,16 @@ def oga_update_spec(spec, y, x, eta, *, backend: str = "auto", operands=None,
         return _projection.project(spec, y + eta * g)
 
     L, R, K = spec.L, spec.R, spec.K
-    a_rows, mask_rows, scal_static = (
-        pack_spec_operands(spec) if operands is None else operands
-    )
-    x_rows = x.to(y.dtype)[None].expand(R * K, L).contiguous()
-    rows = _dispatch_fused(
-        pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y, kstar),
-        _og.with_eta(scal_static, eta), tiling,
-    )
-    return unpack_rows(rows, L, R, K)
+    with spans.span(UPDATE_SPAN):
+        a_rows, mask_rows, scal_static = (
+            pack_spec_operands(spec) if operands is None else operands
+        )
+        x_rows = x.to(y.dtype)[None].expand(R * K, L).contiguous()
+        rows = _dispatch_fused(
+            pack_rows(y), a_rows, mask_rows, x_rows, _kstar_rows(spec, y, kstar),
+            _og.with_eta(scal_static, eta), tiling,
+        )
+        return unpack_rows(rows, L, R, K)
 
 
 def oga_update_batch(spec, y, x, eta, *, operands=None, tiling=None):
@@ -175,18 +168,19 @@ def oga_update_batch(spec, y, x, eta, *, operands=None, tiling=None):
     """
     G, L, R, K = y.shape
     N = R * K
-    a_rows, mask_rows, scal_static = (
-        pack_spec_operands_batch(spec) if operands is None else operands
-    )
-    y_rows = pack_rows(y).reshape(G * N, L)
-    kstar_rows = _kstar_rows(spec, y).reshape(G * N, L)
-    x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L).contiguous()
-    eta_rows = eta.to(scal_static.dtype)[:, None].expand(G, N).reshape(G * N)
-    rows = _dispatch_fused(
-        y_rows, a_rows, mask_rows, x_rows, kstar_rows,
-        _og.with_eta(scal_static, eta_rows), tiling,
-    )
-    return unpack_rows(rows.reshape(G, N, L), L, R, K)
+    with spans.span(UPDATE_SPAN):
+        a_rows, mask_rows, scal_static = (
+            pack_spec_operands_batch(spec) if operands is None else operands
+        )
+        y_rows = pack_rows(y).reshape(G * N, L)
+        kstar_rows = _kstar_rows(spec, y).reshape(G * N, L)
+        x_rows = x.to(y.dtype)[:, None, :].expand(G, N, L).reshape(G * N, L).contiguous()
+        eta_rows = eta.to(scal_static.dtype)[:, None].expand(G, N).reshape(G * N)
+        rows = _dispatch_fused(
+            y_rows, a_rows, mask_rows, x_rows, kstar_rows,
+            _og.with_eta(scal_static, eta_rows), tiling,
+        )
+        return unpack_rows(rows.reshape(G, N, L), L, R, K)
 
 
 # ------------------------------------------------------- kernel dispatchers --
@@ -211,8 +205,9 @@ def proj_bisect(z, a, mask, c, *, tiling=None):
 def proj_sortscan(z, a, mask, c, *, tiling=None):
     """The exact sortscan projection, its row block from ``tiling`` or the
     autotune cache."""
-    cfg = _tiling("proj", z, tiling)
-    return _ss.proj_sortscan(z, a, mask, c, row_block=cfg.row_block)
+    with spans.span(LAUNCH_SPAN):
+        cfg = _tiling("proj", z, tiling)
+        return _ss.proj_sortscan(z, a, mask, c, row_block=cfg.row_block)
 
 
 def flash_attention(q, k, v, *, window=None, softcap=None, return_lse=False):

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import baselines, graph, projection, reward
 from repro_torch.core.graph import ClusterSpec
 from repro_torch.device import DeviceLike, resolve_device
@@ -274,87 +275,96 @@ def _step(spec: ClusterSpec, state: LifecycleState, x_t, w_t, f_t, *, algorithm:
         if size_aware:
             evict, wasted = no_evict, no_waste
         else:
-            state, evict, wasted = _evict(spec, state, c_t, fault_policy, queue_depth)
+            with spans.span("repro_torch.lifecycle.evict"):
+                state, evict, wasted = _evict(spec, state, c_t, fault_policy, queue_depth)
 
     # enqueue arrivals (one job a port a slot at most)
-    arrive = x_t > 0
-    can_q = state.q_len < queue_depth
-    push = arrive & can_q
-    pushf = push.to(dtype)
-    tail = _tail(state.q_len, queue_depth, dtype)
-    q_work = state.q_work + tail * (w_t * pushf)[..., None]
-    pushed = (tail * pushf[..., None]).to(i32)
-    q_arr = state.q_arr + pushed * t
-    q_ready = state.q_ready + pushed * t       # arrivals are ready at once
-    q_retry = state.q_retry
-    q_len = state.q_len + push.to(i32)
-    dropped = state.dropped + (arrive & ~can_q).sum(-1, dtype=i32)
+    with spans.span("repro_torch.lifecycle.enqueue"):
+        arrive = x_t > 0
+        can_q = state.q_len < queue_depth
+        push = arrive & can_q
+        pushf = push.to(dtype)
+        tail = _tail(state.q_len, queue_depth, dtype)
+        q_work = state.q_work + tail * (w_t * pushf)[..., None]
+        pushed = (tail * pushf[..., None]).to(i32)
+        q_arr = state.q_arr + pushed * t
+        q_ready = state.q_ready + pushed * t       # arrivals are ready at once
+        q_retry = state.q_retry
+        q_len = state.q_len + push.to(i32)
+        dropped = state.dropped + (arrive & ~can_q).sum(-1, dtype=i32)
 
     # admit the queue head on every idle port (under faults, once its
     # backoff has passed)
-    admit = (state.remaining <= 0) & (q_len > 0)
-    if f_t is not None:
-        admit = admit & (q_ready[..., 0] <= t)
-    new_work = torch.clamp_min(q_work[..., 0], WORK_FLOOR)
-    new_arr, new_retry = q_arr[..., 0], q_retry[..., 0]
-    shift = lambda q: torch.cat([q[..., 1:], torch.zeros_like(q[..., :1])], -1)
-    adm = admit[..., None]
-    q_work = torch.where(adm, shift(q_work), q_work)
-    q_arr = torch.where(adm, shift(q_arr), q_arr)
-    q_ready = torch.where(adm, shift(q_ready), q_ready)
-    q_retry = torch.where(adm, shift(q_retry), q_retry)
-    q_len = q_len - admit.to(i32)
-    admit_f = admit.to(dtype)
+    with spans.span("repro_torch.lifecycle.admit"):
+        admit = (state.remaining <= 0) & (q_len > 0)
+        if f_t is not None:
+            admit = admit & (q_ready[..., 0] <= t)
+        new_work = torch.clamp_min(q_work[..., 0], WORK_FLOOR)
+        new_arr, new_retry = q_arr[..., 0], q_retry[..., 0]
+        shift = lambda q: torch.cat([q[..., 1:], torch.zeros_like(q[..., :1])], -1)
+        adm = admit[..., None]
+        q_work = torch.where(adm, shift(q_work), q_work)
+        q_arr = torch.where(adm, shift(q_arr), q_arr)
+        q_ready = torch.where(adm, shift(q_ready), q_ready)
+        q_retry = torch.where(adm, shift(q_retry), q_retry)
+        q_len = q_len - admit.to(i32)
+        admit_f = admit.to(dtype)
 
     # allocate
-    if size_aware:
-        # preemptive: the whole surviving capacity re-divided across this
-        # slot's admissions and every job in service, ranked on remaining work
-        sizes = torch.where(admit, new_work, state.remaining)
-        spec_t = spec if c_t is None else dataclasses.replace(spec, c=c_t)
-        held = baselines.step_fn(algorithm)(spec_t, (sizes > 0).to(dtype), step_w, sizes=sizes)
-        reward_t = reward.total_reward(spec, admit_f, held * admit_f[..., None, None])
-    else:
-        # held allocations: admissions against the surviving residual capacity
-        c_res = graph.residual_capacity(spec, state.held, c_t)
-        if algorithm == "ogasched":
-            y_prop = state.y
+    with spans.span("repro_torch.lifecycle.allocate"):
+        if size_aware:
+            # preemptive: the whole surviving capacity re-divided across this
+            # slot's admissions and every job in service, ranked on remaining work
+            sizes = torch.where(admit, new_work, state.remaining)
+            spec_t = spec if c_t is None else dataclasses.replace(spec, c=c_t)
+            held = baselines.step_fn(algorithm)(spec_t, (sizes > 0).to(dtype), step_w,
+                                                sizes=sizes)
+            reward_t = reward.total_reward(spec, admit_f, held * admit_f[..., None, None])
         else:
-            y_prop = _propose(algorithm, graph.residual_spec(spec, state.held, c_t), admit_f,
-                              step_w)
-        alloc = projection.project_spec_rows(spec, y_prop * admit_f[..., None, None], c_res,
-                                             operands=operands)
-        reward_t = reward.total_reward(spec, admit_f, alloc)
-        held = torch.where(admit[..., None, None], alloc, state.held)
-    remaining = torch.where(admit, new_work, state.remaining)
-    svc_arr = torch.where(admit, new_arr, state.svc_arr)
-    svc_start = torch.where(admit, t, state.svc_start)
-    svc_work = torch.where(admit, new_work, state.svc_work)
-    svc_retry = torch.where(admit, new_retry, state.svc_retry)
-    used = (held * spec.mask[..., None]).sum(-3)             # (G, R, K) slot peak
+            # held allocations: admissions against the surviving residual capacity
+            c_res = graph.residual_capacity(spec, state.held, c_t)
+            if algorithm == "ogasched":
+                y_prop = state.y
+            else:
+                y_prop = _propose(algorithm, graph.residual_spec(spec, state.held, c_t),
+                                  admit_f, step_w)
+            alloc = projection.project_spec_rows(spec, y_prop * admit_f[..., None, None], c_res,
+                                                 operands=operands)
+            reward_t = reward.total_reward(spec, admit_f, alloc)
+            held = torch.where(admit[..., None, None], alloc, state.held)
+        remaining = torch.where(admit, new_work, state.remaining)
+        svc_arr = torch.where(admit, new_arr, state.svc_arr)
+        svc_start = torch.where(admit, t, state.svc_start)
+        svc_work = torch.where(admit, new_work, state.svc_work)
+        svc_retry = torch.where(admit, new_retry, state.svc_retry)
+        used = (held * spec.mask[..., None]).sum(-3)             # (G, R, K) slot peak
 
     # service at the utility-derived rate of the held allocation
-    in_svc = remaining > 0
-    in_svc_f = in_svc.to(dtype)
-    rates = torch.clamp_min(reward.service_rates(spec, held), rate_floor)
-    rem2 = remaining - rates * in_svc_f
-    work_done = torch.minimum(rates, remaining) * in_svc_f
-    depart = in_svc & (rem2 <= 0)
-    departf = depart.to(dtype)
-    jct = (t - svc_arr + 1).to(dtype) * departf
-    svc_slots = (t - svc_start + 1).to(dtype) * departf
-    held = torch.where(depart[..., None, None], 0.0, held)
-    remaining = torch.where(depart, 0.0, torch.clamp_min(rem2, 0.0))
+    with spans.span("repro_torch.lifecycle.serve"):
+        in_svc = remaining > 0
+        in_svc_f = in_svc.to(dtype)
+        rates = torch.clamp_min(reward.service_rates(spec, held), rate_floor)
+        rem2 = remaining - rates * in_svc_f
+        work_done = torch.minimum(rates, remaining) * in_svc_f
+
+    with spans.span("repro_torch.lifecycle.depart"):
+        depart = in_svc & (rem2 <= 0)
+        departf = depart.to(dtype)
+        jct = (t - svc_arr + 1).to(dtype) * departf
+        svc_slots = (t - svc_start + 1).to(dtype) * departf
+        held = torch.where(depart[..., None, None], 0.0, held)
+        remaining = torch.where(depart, 0.0, torch.clamp_min(rem2, 0.0))
 
     # the policy update: OGA ascends on the arrival indicator, as in slot mode
-    if algorithm != "ogasched":
-        y_next = state.y
-    elif backend == "fused":
-        y_next = ops.oga_update_batch(spec, state.y, x_t, state.eta, operands=operands)
-    else:
-        y_next = torch.stack([
-            ops.oga_update_spec(spec[g], state.y[g], x_t[g], state.eta[g], backend=backend)
-            for g in range(G)])
+    with spans.span("repro_torch.lifecycle.update"):
+        if algorithm != "ogasched":
+            y_next = state.y
+        elif backend == "fused":
+            y_next = ops.oga_update_batch(spec, state.y, x_t, state.eta, operands=operands)
+        else:
+            y_next = torch.stack([
+                ops.oga_update_spec(spec[g], state.y[g], x_t[g], state.eta[g], backend=backend)
+                for g in range(G)])
 
     new_state = LifecycleState(
         held=held, remaining=remaining, svc_arr=svc_arr, svc_start=svc_start,
@@ -384,45 +394,50 @@ def run_batch(spec: ClusterSpec, arrivals, works, algorithm: str = "ogasched", *
     y0 (G, L, R, K) or None. Every slot is one ``_step`` over all G
     configurations (one fused-kernel and one projection launch a slot for
     OGASCHED on the card). Returns a trace whose fields lead with (G, T)."""
-    dev = resolve_device(device)
-    spec = spec.to(dev)
-    arrivals = torch.as_tensor(arrivals, device=dev)
-    works = torch.as_tensor(works, device=dev)
-    G, T, L = arrivals.shape
-    if tuple(works.shape) != tuple(arrivals.shape):
-        raise ValueError(f"works must pair 1:1 with arrivals: got works "
-                         f"{tuple(works.shape)} vs arrivals {tuple(arrivals.shape)}")
-    if faults is not None:
-        faults = torch.as_tensor(faults, device=dev)
-        if tuple(faults.shape) != (G, T, spec.K):
-            raise ValueError(f"faults must be a (T, K) capacity-multiplier stream: got "
-                             f"{tuple(faults.shape[-2:])} vs T={T}, K={spec.K}")
-    if algorithm not in ALL_ALGORITHMS:
-        raise ValueError(f"algorithm must be one of {ALL_ALGORITHMS}, got {algorithm!r}")
-    backend = ops.resolve_oga_backend(backend)
-    use_oga = algorithm == "ogasched"
-    operands = ops.pack_spec_operands(spec)
-    step_w = None if use_oga else baselines.default_parallelism(spec, algorithm)
-    if y0 is None and use_oga:
-        y0 = default_y0(spec)
-    state = init_state(spec, eta0, queue_depth, y0)
-    decay = torch.as_tensor(decay, dtype=spec.a.dtype, device=dev)
-    dtype, i32, b = spec.a.dtype, torch.int32, torch.bool
-    R, K = spec.R, spec.K
-    empty = lambda shape, dt: torch.empty((G, T) + shape, dtype=dt, device=dev)
-    bufs = [empty((), dtype), empty((L,), b), empty((L,), b), empty((L,), dtype),
-            empty((L,), dtype), empty((R, K), dtype), empty((L,), b), empty((L,), i32),
-            empty((), i32), empty((L,), b), empty((), dtype), empty((), i32),
-            empty((L,), dtype)]
-    for t in range(T):
-        state, events = _step(
-            spec, state, arrivals[:, t], works[:, t],
-            None if faults is None else faults[:, t], algorithm=algorithm, decay=decay,
-            rate_floor=rate_floor, backend=backend, step_w=step_w, operands=operands,
-            fault_policy=fault_policy)
-        for buf, ev in zip(bufs, events):
-            buf[:, t] = ev
-    return LifecycleTrace(*bufs)
+    with spans.span("repro_torch.lifecycle.segment"):
+        with spans.span("repro_torch.lifecycle.setup"):
+            dev = resolve_device(device)
+            spec = spec.to(dev)
+            arrivals = torch.as_tensor(arrivals, device=dev)
+            works = torch.as_tensor(works, device=dev)
+            G, T, L = arrivals.shape
+            if tuple(works.shape) != tuple(arrivals.shape):
+                raise ValueError(f"works must pair 1:1 with arrivals: got works "
+                                 f"{tuple(works.shape)} vs arrivals {tuple(arrivals.shape)}")
+            if faults is not None:
+                faults = torch.as_tensor(faults, device=dev)
+                if tuple(faults.shape) != (G, T, spec.K):
+                    raise ValueError(f"faults must be a (T, K) capacity-multiplier stream: got "
+                                     f"{tuple(faults.shape[-2:])} vs T={T}, K={spec.K}")
+            if algorithm not in ALL_ALGORITHMS:
+                raise ValueError(f"algorithm must be one of {ALL_ALGORITHMS}, "
+                                 f"got {algorithm!r}")
+            backend = ops.resolve_oga_backend(backend)
+            use_oga = algorithm == "ogasched"
+            operands = ops.pack_spec_operands(spec)
+            step_w = None if use_oga else baselines.default_parallelism(spec, algorithm)
+            if y0 is None and use_oga:
+                y0 = default_y0(spec)
+            state = init_state(spec, eta0, queue_depth, y0)
+            decay = torch.as_tensor(decay, dtype=spec.a.dtype, device=dev)
+            dtype, i32, b = spec.a.dtype, torch.int32, torch.bool
+            R, K = spec.R, spec.K
+            empty = lambda shape, dt: torch.empty((G, T) + shape, dtype=dt, device=dev)
+            bufs = [empty((), dtype), empty((L,), b), empty((L,), b), empty((L,), dtype),
+                    empty((L,), dtype), empty((R, K), dtype), empty((L,), b), empty((L,), i32),
+                    empty((), i32), empty((L,), b), empty((), dtype), empty((), i32),
+                    empty((L,), dtype)]
+        for t in range(T):
+            with spans.span("repro_torch.lifecycle.step"):
+                state, events = _step(
+                    spec, state, arrivals[:, t], works[:, t],
+                    None if faults is None else faults[:, t], algorithm=algorithm,
+                    decay=decay, rate_floor=rate_floor, backend=backend, step_w=step_w,
+                    operands=operands, fault_policy=fault_policy)
+            with spans.span("repro_torch.lifecycle.record"):
+                for buf, ev in zip(bufs, events):
+                    buf[:, t] = ev
+        return LifecycleTrace(*bufs)
 
 
 def run(spec: ClusterSpec, arrivals, works, algorithm: str = "ogasched", *, eta0=25.0,
