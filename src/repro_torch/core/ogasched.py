@@ -13,10 +13,12 @@ from typing import Optional
 import torch
 
 from repro_torch import spans
-from repro_torch.core import reward
+from repro_torch.core import reward, slot_graph
 from repro_torch.core.graph import ClusterSpec, zeros_like_decision
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+
+STEP_SPAN = "repro_torch.oga_step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +42,21 @@ def init_state(spec: ClusterSpec, eta0: float) -> OGAState:
 def oga_step(spec, state: OGAState, x, decay, backend: str = "reference",
              operands=None):
     """One slot: observe x(t), collect q(x(t), y(t)), ascend, project.
-    Returns (next_state, reward_at_t)."""
-    with spans.span("repro_torch.oga_step"):
-        q_t = reward.total_reward(spec, x, state.y)
-        y_next = ops.oga_update_spec(
-            spec, state.y, x, state.eta, backend=backend, operands=operands,
-        )
-        return OGAState(y=y_next, eta=state.eta * decay, t=state.t + 1), q_t
+    Returns (next_state, reward_at_t). On the card, with the fused backend
+    and ``operands``, a cluster's slots are replayed as one CUDA graph once
+    the cluster repeats (``core.slot_graph``), with the eager values bit
+    for bit."""
+    with spans.span(STEP_SPAN):
+        y_next, q_t, eta_next = slot_graph.run(_slot, spec, state.y, x, state.eta, decay,
+                                               backend, operands)
+        return OGAState(y=y_next, eta=eta_next, t=state.t + 1), q_t
+
+
+def _slot(spec, y, x, eta, decay, backend, operands):
+    """The slot's device work: (y(t+1), q(x(t), y(t)), eta * decay)."""
+    q_t = reward.total_reward(spec, x, y)
+    y_next = ops.oga_update_spec(spec, y, x, eta, backend=backend, operands=operands)
+    return y_next, q_t, eta * decay
 
 
 def run(spec: ClusterSpec, arrivals, eta0, decay=0.9999,

@@ -42,6 +42,7 @@ kept masks equal to the CPU's; the int8 KV cache's codes within one step
 of the CPU's and its decode within 1e-4 plus chip_smoke.INT8_FLIP_LOGIT a
 differing code.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -50,7 +51,8 @@ import torch
 
 import _bisect_network as bnet
 import _sortscan_network as net
-from repro_torch.core import ogasched
+from repro_torch import spans
+from repro_torch.core import ogasched, slot_graph
 from repro_torch.configs import base as tconfigs
 from repro_torch.kernels import _launch, autotune, ops, ref
 from repro_torch.kernels import flash_attention as tfa
@@ -376,11 +378,16 @@ def test_warmed_dispatch_makes_no_measurement(dev, cache):
     autotune._store("oga_step", cfg.R * cfg.K, cfg.L, autotune.KernelConfig(8, "sortscan", 0),
                     1.0, {})
     autotune.reset_stats()
+    slot_graph.reset()
     got = sweep.run_grid(batch, ("ogasched",))["ogasched"]
     single, _ = ogasched.run(batch.spec[0], batch.arrivals[0], eta0=25.0, device=dev)
     stats = autotune.cache_stats()
     assert stats["measurements"] == 0 and stats["misses"] == 0
-    assert stats["hits"] == 2 * cfg.T
+    # the grid resolves once a slot; the run at each eager slot and once at
+    # its capture, and not in a replayed slot
+    runs = slot_graph.counts
+    assert runs["eager"] + runs["replays"] == cfg.T and runs["captures"] == 1
+    assert stats["hits"] == cfg.T + runs["eager"] + runs["captures"]
     pinned, _ = ogasched.run_batch(batch.spec, batch.arrivals, batch.eta0, batch.decay,
                                    tiling=autotune.DEFAULT_CONFIG)
     assert torch.equal(got, pinned)
@@ -1052,3 +1059,122 @@ def test_flash_meta_branch_returns_the_kernels_shapes(dev):
         for m, c in ((o_m, o), (lse_m, lse), (dq, g[0]), (dk, g[1]), (dv, g[2])):
             assert m.device.type == "meta"
             assert (m.shape, m.dtype, m.stride()) == (c.shape, c.dtype, c.stride())
+
+
+# ------------------------------------------------- the slot's CUDA graph --
+# (L, R, K): the trace and the learning rate of fig5's cluster (chip_smoke's
+# fig5 phase at the benchmark's contention) and of Fig. 2's
+SLOT_GRAPH_CASES = {
+    (100, 1024, 6): (dict(contention=5.0, rho=0.95, beta_range=(0.01, 0.015)), 2.0, 0.9995),
+    (10, 128, 6): (dict(contention=10.0), 25.0, 0.9999),
+}
+
+
+@pytest.fixture
+def graphs():
+    slot_graph.reset()
+    yield slot_graph
+    slot_graph.reset()
+
+
+def _slot_problem(shape, T, dev):
+    (L, R, K), (kw, eta0, decay) = shape, SLOT_GRAPH_CASES[shape]
+    spec, arr = trace.make(trace.TraceConfig(T=T, L=L, R=R, K=K, seed=7, **kw), device=dev)
+    return spec, arr, ops.pack_spec_operands(spec), eta0, decay
+
+
+@pytest.mark.parametrize("shape", list(SLOT_GRAPH_CASES))
+def test_replayed_slots_equal_the_eager_slots_bit_for_bit(dev, graphs, shape):
+    """200 slots of ``oga_step`` (captured at slot 2, replayed after) against
+    the eager slot: every y(t+1), q_t and eta bit for bit and in the same
+    layout, read after all 200 slots, so every returned y still holds its
+    slot's values; the fused kernel's launches by shape equal the eager
+    slots', one a slot."""
+    T = 200
+    spec, arr, operands, eta0, decay = _slot_problem(shape, T, dev)
+    rows = (spec.R * spec.K, spec.L)
+    by_shape = toga.oga_step_fused.launches_by_shape
+    n0 = by_shape[rows]
+    state = ogasched.init_state(spec, eta0)
+    ys, qs = [], []
+    for t in range(T):
+        state, q = ogasched.oga_step(spec, state, arr[t], decay, "fused", operands)
+        ys.append(state.y)
+        qs.append(q)
+    n1 = by_shape[rows]
+    assert graphs.counts == {"eager": 2, "captures": 1, "replays": T - 2}
+    y, eta = ogasched.init_state(spec, eta0).y, ogasched.init_state(spec, eta0).eta
+    for t in range(T):
+        y, q, eta = ogasched._slot(spec, y, arr[t], eta, decay, "fused", operands)
+        assert ys[t].stride() == y.stride() and torch.equal(ys[t], y), f"y at slot {t}"
+        assert torch.equal(qs[t], q), f"q at slot {t}"
+    assert torch.equal(state.eta, eta)
+    assert n1 - n0 == by_shape[rows] - n1 == T
+
+
+def test_a_new_spec_operands_or_decay_recaptures(dev, graphs):
+    """Each of a new spec, a new operands tuple and a new decay runs its
+    first slot eagerly and is captured on its second; one graph stays."""
+    spec, arr, operands, eta0, decay = _slot_problem((10, 128, 6), 20, dev)
+    state = ogasched.init_state(spec, eta0)
+    t = 0
+
+    def slots(n, spec, operands, decay):
+        nonlocal state, t
+        for _ in range(n):
+            state, _ = ogasched.oga_step(spec, state, arr[t], decay, "fused", operands)
+            t += 1
+
+    slots(3, spec, operands, decay)
+    assert graphs.counts == {"eager": 2, "captures": 1, "replays": 1}
+    new_spec = dataclasses.replace(spec, c=spec.c.clone())
+    for args in ((spec, ops.pack_spec_operands(spec), decay), (new_spec, operands, decay),
+                 (spec, operands, 0.999)):
+        before = dict(graphs.counts)
+        slots(2, *args)
+        assert graphs.counts["eager"] == before["eager"] + 1
+        assert graphs.counts["captures"] == before["captures"] + 1
+        assert graphs.counts["replays"] == before["replays"] + 1
+    assert len(graphs._graphs) == 1
+    slots(3, spec, operands, 0.999)
+    assert graphs.counts["replays"] == 7 and graphs.counts["captures"] == 4
+
+
+def test_a_clusters_graph_goes_with_the_cluster(dev, graphs):
+    """``ogasched.run`` captures its cluster's slot; once the run has
+    returned and its operands are freed, the graph and its memory pool are
+    gone, and the card holds what it held before."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    spec, arr, operands, eta0, decay = _slot_problem((100, 1024, 6), 8, dev)
+    del operands
+    rewards, y = ogasched.run(spec, arr, eta0, decay, device=dev)
+    assert graphs.counts["captures"] == 1 and graphs._graphs == {}
+    del spec, arr, rewards, y
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) < before + 2**20
+
+
+def test_the_profiler_sees_the_fused_kernel_inside_a_replay(dev, graphs):
+    """Under ``torch.profiler``, five replayed slots show five
+    ``oga_step_sortscan_kernel`` launches with device time, and five
+    ``repro_torch.oga_step.replay`` spans and none of the eager slot's."""
+    spec, arr, operands, eta0, decay = _slot_problem((10, 128, 6), 8, dev)
+    state = ogasched.init_state(spec, eta0)
+    for t in range(3):
+        state, _ = ogasched.oga_step(spec, state, arr[t], decay, "fused", operands)
+    torch.cuda.synchronize()
+    spans.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for t in range(3, 8):
+            state, _ = ogasched.oga_step(spec, state, arr[t], decay, "fused", operands)
+        torch.cuda.synchronize()
+    snap = spans.snapshot()
+    spans.reset()
+    assert snap[slot_graph.REPLAY_SPAN][0] == snap[ogasched.STEP_SPAN][0] == 5
+    assert "repro_torch.reward" not in snap and "repro_torch.launch" not in snap
+    kernels = [e for e in prof.key_averages() if "oga_step_sortscan_kernel" in e.key]
+    assert sum(e.count for e in kernels) == 5
+    assert sum(float(getattr(e, "self_device_time_total", 0.0)
+                     or getattr(e, "self_cuda_time_total", 0.0)) for e in kernels) > 0
